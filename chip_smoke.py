@@ -8,16 +8,25 @@ needs one CUDA device and nvcc. It
   2. builds the CUDA kernels from ngsf_hmm_tpu_torch/csrc (set-up time),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
-     path's shape, and times both there,
-  4. drives the main path at full width -- 1,000,000 sites x 100
-     individuals, float32, freq_est 0: init_state -> run_em (min_iters 3,
-     max_iters 4, Viterbi) -> the three writers -- with the launch counts
-     set to 0 just before and read just after,
-  5. runs the CLI once at a small size.
+     path's shape, and times both there; the est_maf kernels read the
+     posterior slab the chain kernels produced there, and the exact one is
+     also held at 20 individuals; at the main shape the est_maf kernels
+     are also timed in a second build with FMA contraction on,
+  4. drives three paths, each with the launch counts set to 0 just before
+     and read just after: init_state -> run_em (min_iters 3, max_iters 4,
+     Viterbi) [-> the three writers]
+       main   1,000,000 sites x 100 individuals, float32, freq_est 1 (the
+              default: E-step, (F, alpha) M-step, freq M-step on the
+              macro-stepped est_maf kernels), with the writers,
+       fixed  200,003 x 100, freq_est 0 (frequencies held fixed), with the
+              writers,
+       exact  200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
+              than 32 individuals have no macro schedule),
+  5. runs the CLI once at a small size (--freq e, freq_est 1).
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launches on the main path, its error against the plain version and its
-times.
+its launches summed over the three paths, its error against the plain
+version and its times.
 
 --rehearse runs the same control flow at a tiny size on the CPU through the
 plain versions (to find wrong shapes and paths without a card); it never
@@ -43,6 +52,14 @@ PEAK_F32 = 67e12
 # is left is expf/logf against torch.exp/torch.log).
 ATOL = 2e-5      # normalised products, ratios, posteriors
 LL_RTOL = 2e-6   # log-likelihoods
+# est_maf kernels: the sum over individuals runs in another order than
+# torch.sum, so values agree to float32 rounding (relative to max(|x|, 1))
+# except at sites where that rounding flips the |prev - freq| > EPSILON
+# test: such a site stops one pass earlier or later, which moves its freq
+# by one damped step (< MAF_FREQ_ATOL) and its sums by one increment.
+MAF_RTOL = 2e-5
+MAF_FREQ_ATOL = 2e-5
+MAF_FLIP_SHARE = 1e-3  # most sites that may stop at another pass
 
 # Float operations per (site, lane), counted from the CUDA sources
 # (emission prologue 25, transition 12, then the product / rescale step).
@@ -51,6 +68,15 @@ FLOPS_CELL = {
     "block_transfer": 37 + 21,
     "bw_sites": 37 + 14,
     "fw_post": 37 + 18,
+    # est_maf (csrc/maf_common.cuh, maf_exact.cu): the planes of a cell,
+    # one pass over it, one gradient evaluation, one exact pass, and one
+    # step of the per-site window
+    "maf_planes": 24,
+    "maf_pass": 16,
+    "maf_grad": 31,
+    "maf_exact_cell": 5,
+    "maf_exact_pass": 21,
+    "maf_window_step": 16,
 }
 
 KERNELS = {
@@ -70,7 +96,20 @@ KERNELS = {
     "viterbi": (
         "ngsf_hmm_tpu_torch/csrc/viterbi.cu",
         "ngsf_hmm_tpu/models/hmm.py:206 (lax.scan, no TPU kernel)"),
+    "maf_state_grad": ("ngsf_hmm_tpu_torch/csrc/maf_state_grad.cu",
+                       "ngsf_hmm_tpu/ops/maf_pallas.py:662"),
+    "maf_sums_grad": ("ngsf_hmm_tpu_torch/csrc/maf_sums_grad.cu",
+                      "ngsf_hmm_tpu/ops/maf_pallas.py:744"),
+    "maf_window": (
+        "ngsf_hmm_tpu_torch/csrc/maf_window.cu",
+        "ngsf_hmm_tpu/ops/maf_pallas.py:776 (XLA elementwise, no TPU "
+        "kernel)"),
+    "maf_exact": ("ngsf_hmm_tpu_torch/csrc/maf_exact.cu",
+                  "ngsf_hmm_tpu/ops/maf_pallas.py:85"),
 }
+CHAIN_KERNELS = ("block_transfer_grad", "bw_sites", "fw_post",
+                 "block_transfer", "combine_blocks", "viterbi")
+SLAB_KERNELS = ("maf_state_grad", "maf_sums_grad", "maf_window")
 
 
 def log(msg):
@@ -150,10 +189,203 @@ class Timer:
         return out, start.elapsed_time(end) / reps
 
 
-def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results):
+class Recorder:
+    """Collects each kernel's error, times and bound at one shape."""
+
+    def __init__(self, torch, label, results):
+        self.torch, self.label, self.results = torch, label, results
+
+    def record(self, name, err, ms, plain_ms, nbytes, flops):
+        b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+        if not np.isfinite(err):
+            fail(f"{name} [{self.label}]: non-finite difference")
+        r = self.results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], float(err))
+        r.update(ms=ms, plain_ms=plain_ms, bytes=int(nbytes),
+                 bound_ms=max(b_ms, f_ms),
+                 bound_by="bytes" if b_ms >= f_ms else "operations")
+        log(f"[{self.label}] {name}: max diff {err:.3g}, kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bytes {nbytes / 1e6:.1f} MB, "
+            f"bound {max(b_ms, f_ms):.4f} ms ({r['bound_by']})")
+
+    def finite(self, name, *ts):
+        for t in ts:
+            if not bool(self.torch.isfinite(t).all()):
+                fail(f"{name} [{self.label}]: NaN or inf in the output")
+
+
+def maf_compare(torch, rec, name, got, want, rows):
+    """An est_maf kernel's per-site rows against the plain version's (see
+    MAF_RTOL above). Returns the largest scaled difference over the sites
+    that stopped at the same pass; fails on any gate."""
+    rec.finite(name, got, want)
+    rel = (got - want).abs() / want.abs().clamp_min(1.0)
+    off = (rel > MAF_RTOL).any(0)
+    if "active" in rows:
+        off |= got[rows.index("active")] != want[rows.index("active")]
+    share = float(off.float().mean())
+    d_freq = float((got[rows.index("freq")]
+                    - want[rows.index("freq")]).abs().max()
+                   ) if "freq" in rows else 0.0
+    err = float(rel[:, ~off].max()) if not bool(off.all()) else float("inf")
+    log(f"[{rec.label}] {name}: sites stopping at another pass "
+        f"{share:.3g} of {off.numel()}, freq max diff {d_freq:.3g}")
+    if share > MAF_FLIP_SHARE or d_freq > MAF_FREQ_ATOL or err > MAF_RTOL:
+        fail(f"{name} [{rec.label}]: {share} of the sites off, freq diff "
+             f"{d_freq}, values {err}")
+    return max(err, d_freq)
+
+
+def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
+                      p_sites=None, gl_lin=None):
+    """The est_maf kernels against their plain versions on the gl slabs of
+    `prep` and the raw posterior slab `p_slab` (fw_post's output, so exact
+    1.0 posteriors occur). slab=False: the exact kernel only (no macro
+    schedule below 32 individuals). p_sites / gl_lin: also hold the public
+    functions against ops/maf.est_maf on the [S, N] arrays."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+
+    g0, g2 = prep["g0"], prep["g2"]
+    bs, nb, N = g0.shape
+    sites = bs * nb
+    cells = sites * N
+    slab_b = cells * 4
+    fc = FLOPS_CELL
+    total = lambda tally: float(torch.stack(tally).sum())
+
+    if slab:
+        K0, M = tmaf.macro_schedule(N)
+        Ms = tmaf.macro_rounds(K0, M)
+        # ---- kernel A
+        a_k, ms = timer(lambda: mk._k_maf_state_grad(g0, g2, p_slab, K0))
+        tally = []
+        a_p, pms = timer(lambda: mk._state_grad_plain(g0, g2, p_slab, K0,
+                                                      tally),
+                         reps=1, warm=0)
+        err = maf_compare(torch, rec, "maf_state_grad", a_k, a_p,
+                          ["freq", "num", "den", "active", "cn", "cd", "dcn",
+                           "dcd"])
+        rec.record("maf_state_grad", err, ms, pms, 3 * slab_b + 8 * sites * 4,
+                   cells * (fc["maf_planes"] + fc["maf_grad"])
+                   + total(tally) * N * fc["maf_pass"])
+        # ---- the rounds of one est_maf_slab call, each piece on the
+        # kernels' own state: window, then kernel B at the advanced freq
+        st, grads, passes = a_k[:4], a_k[4:], K0
+        for r, M_r in enumerate(Ms):
+            if r > 0:
+                fq = st[0].contiguous()
+                b_k, ms = timer(lambda: mk._k_maf_sums_grad(g0, g2, p_slab,
+                                                            fq))
+                b_p, pms = timer(lambda: mk._sums_grad_plain(g0, g2, p_slab,
+                                                             fq),
+                                 reps=1, warm=0)
+                if r == 1:
+                    err = maf_compare(torch, rec, "maf_sums_grad", b_k, b_p,
+                                      ["cn", "cd", "dcn", "dcd"])
+                    rec.record(
+                        "maf_sums_grad", err, ms, pms,
+                        3 * slab_b + 5 * sites * 4,
+                        cells * (fc["maf_planes"] + fc["maf_grad"]))
+                grads = b_k
+            w_k, ms = timer(lambda: mk._k_maf_window(st, grads, passes, M_r))
+            tally = []
+            w_p, pms = timer(lambda: mk._virtual_window_plain(
+                st, grads, passes, M_r, tally), reps=1, warm=0)
+            err = maf_compare(torch, rec, f"maf_window (M = {M_r})", w_k,
+                              w_p, ["freq", "num", "den", "active"])
+            # the line keeps the last (longest) window's times
+            rec.record("maf_window", err, ms, pms, 12 * sites * 4,
+                       total(tally) * fc["maf_window_step"])
+            st, passes = w_k, passes + M_r
+        freq_k = mk.est_maf_slab(prep, p_slab)
+        if not torch.equal(freq_k, mk._site_vector(st[0], prep)):
+            fail(f"[{rec.label}] est_maf_slab differs from its pieces")
+        if p_sites is not None:
+            want = tmaf.est_maf(gl_lin, p_sites, linear=True, macro=True)
+            d = float((freq_k - want).abs().max())
+            log(f"[{rec.label}] est_maf_slab against ops/maf.est_maf(macro) "
+                f"on [S, N]: max diff {d:.3g}")
+            if d > MAF_FREQ_ATOL:
+                fail(f"[{rec.label}] est_maf_slab off est_maf by {d}")
+
+    # ---- the exact fixed point (reads the posterior through the snap)
+    e_k, ms = timer(lambda: mk._k_maf_exact(g0, g2, p_slab, True), reps=1)
+    tally = []
+    e_p, pms = timer(lambda: mk._exact_plain(g0, g2, p_slab, True, tally),
+                     reps=1, warm=0)
+    err = maf_compare(torch, rec, "maf_exact", e_k[None], e_p[None],
+                      ["freq"])
+    rec.record("maf_exact", err, ms, pms, 3 * slab_b + sites * 4,
+               cells * fc["maf_exact_cell"]
+               + total(tally) * N * fc["maf_exact_pass"])
+    log(f"[{rec.label}] maf_exact: {total(tally) / sites:.1f} passes a site")
+    if p_sites is not None:
+        want = tmaf.est_maf(gl_lin, check_interv(p_sites), linear=True)
+        d = float((mk._site_vector(e_k, prep) - want).abs().max())
+        log(f"[{rec.label}] est_maf_exact against ops/maf.est_maf on "
+            f"[S, N]: max diff {d:.3g}")
+        if d > MAF_FREQ_ATOL:
+            fail(f"[{rec.label}] est_maf_exact off est_maf by {d}")
+
+
+def probe_fmad(torch, prep, p_slab, timer, label):
+    """The est_maf kernels built with FMA contraction (-fmad=true) timed
+    beside the build the package runs (-fmad=false, kept for the chain
+    kernels' bit identity), in turns on the same inputs; and how far
+    contraction moves the freq. A measurement only: nothing is gated and
+    the package never loads this second library."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    flags = tuple("-fmad=true" if f == "-fmad=false" else f
+                  for f in cuda_lib.NVCC_FLAGS)
+    libs = {"-fmad=false": cuda_lib.load(), "-fmad=true": cuda_lib.load(flags)}
+    g0, g2 = prep["g0"], prep["g2"]
+    bs, nb, N = g0.shape
+    K0, _ = tmaf.macro_schedule(N)
+    a = torch.empty((8, bs, nb), dtype=torch.float32, device=g0.device)
+    b = torch.empty((4, bs, nb), dtype=torch.float32, device=g0.device)
+    e = torch.empty((bs, nb), dtype=torch.float32, device=g0.device)
+    ptr = (g0.data_ptr(), g2.data_ptr(), p_slab.data_ptr())
+
+    def calls(lib):
+        return {
+            "maf_state_grad": lambda: lib.ngsf_maf_state_grad(
+                *ptr, a.data_ptr(), bs * nb, N, K0, cuda_lib.stream()),
+            "maf_sums_grad": lambda: lib.ngsf_maf_sums_grad(
+                *ptr, a[0].data_ptr(), b.data_ptr(), bs * nb, N,
+                cuda_lib.stream()),
+            "maf_exact": lambda: lib.ngsf_maf_exact(
+                *ptr, e.data_ptr(), bs * nb, N, 1, cuda_lib.stream()),
+        }
+
+    freqs = {}
+    for name in ("maf_state_grad", "maf_sums_grad", "maf_exact"):
+        ms = {}
+        for flag in ("-fmad=false", "-fmad=true", "-fmad=true",
+                     "-fmad=false"):
+            rc, t = timer(calls(libs[flag])[name])
+            cuda_lib.check(rc, f"{name} {flag}")
+            ms.setdefault(flag, []).append(t)
+            if name == "maf_exact":
+                freqs[flag] = e.clone()
+        log(f"[{label}] {name}: -fmad=false "
+            + ", ".join(f"{t:.3f}" for t in ms["-fmad=false"])
+            + " ms; -fmad=true "
+            + ", ".join(f"{t:.3f}" for t in ms["-fmad=true"]) + " ms")
+    d = float((freqs["-fmad=true"] - freqs["-fmad=false"]).abs().max())
+    log(f"[{label}] maf_exact freq, contraction on against off: max diff "
+        f"{d:.3g}")
+
+
+def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
+                  reference=False, fmad_probe=False):
     """Every kernel's wrapper against its plain version on `dev` at this
     shape; fills results[name] with the error and times. Fails the run on
-    any disagreement."""
+    any disagreement. reference=True also holds the est_maf functions
+    against ops/maf.est_maf on the unpacked [S, N] arrays."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -174,24 +406,8 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results):
     sl = (prep["g0"], prep["g2"], fc, prep["dc"])
     cells = bs * nb * N
     slab = cells * 4
-
-    def record(name, err, ms, plain_ms, nbytes, flops):
-        b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-        if not np.isfinite(err):
-            fail(f"{name} [{label}]: non-finite difference")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        r.update(ms=ms, plain_ms=plain_ms, bytes=int(nbytes),
-                 bound_ms=max(b_ms, f_ms),
-                 bound_by="bytes" if b_ms >= f_ms else "operations")
-        log(f"[{label}] {name}: max diff {err:.3g}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bytes {nbytes / 1e6:.1f} MB, "
-            f"bound {max(b_ms, f_ms):.4f} ms ({r['bound_by']})")
-
-    def finite(name, *ts):
-        for t in ts:
-            if not bool(torch.isfinite(t).all()):
-                fail(f"{name} [{label}]: NaN or inf in the output")
+    rec = Recorder(torch, label, results)
+    record, finite = rec.record, rec.finite
 
     def common_scale(got, want, off_g, off_w):
         """Both products rescaled to the plain version's exponent: equal
@@ -288,7 +504,17 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results):
         fail(f"fw_post [{label}]: posterior outside [0, 1]")
     record("fw_post", err, ms, pms, 4 * slab + 2 * nb * N * 4,
            cells * FLOPS_CELL["fw_post"])
-    del bw_k, bw_p, po_k, po_p, p_sites, k1, p1, k4, p4, kb, pb, prep, sl
+    n_one = int((po_k == 1.0).sum())
+    log(f"[{label}] posterior slab: {n_one} cells exactly 1.0 "
+        "(the het floor's case)")
+    del bw_k, bw_p, po_p, k1, p1, k4, p4, kb, pb, sl
+
+    # ---- the est_maf kernels, on the slabs and the posterior from above
+    ref = dict(p_sites=p_sites, gl_lin=torch.exp(gl_t)) if reference else {}
+    check_maf_kernels(torch, dev, prep, po_k, rec, timer, **ref)
+    if fmad_probe and dev.type == "cuda":
+        probe_fmad(torch, prep, po_k, timer, label)
+    del po_k, p_sites, prep, ref
 
     # ---- Viterbi (float32, the main path's dtype; both variants)
     e_prob = calc_emission(gl_t, freq_t[:, None])
@@ -318,17 +544,67 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results):
            S * N * 40)
 
 
-def run_main_path(torch, dev, gl, dist, freq, indF0, alpha0):
-    """init_state -> run_em -> writers at full width, counts read around
-    it. Returns the launch counts."""
+class MafTimer:
+    """While active, times every freq M-step of em_iteration (the two
+    est_maf entry points of ops/maf_kernels) with CUDA events; `ms()`
+    gives one time per call."""
+
+    NAMES = ("est_maf_slab", "est_maf_exact")
+
+    def __init__(self, torch, dev):
+        from ngsf_hmm_tpu_torch.ops import maf_kernels
+        self.torch, self.cuda, self.mod = torch, dev.type == "cuda", maf_kernels
+        self.spans = []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.mod, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, self._timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def _timed(self, fn):
+        def wrapper(*a, **kw):
+            if not self.cuda:
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.spans.append((time.perf_counter() - t0) * 1e3)
+                return out
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            self.spans.append(ev)
+            return out
+        return wrapper
+
+    def ms(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+        return [sp if isinstance(sp, float) else sp[0].elapsed_time(sp[1])
+                for sp in self.spans]
+
+
+def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
+             need, writers):
+    """init_state -> run_em [-> writers] with the launch counts set to 0
+    just before and read just after; fails unless every kernel in `need`
+    was launched, no plain version was called and what came out is sound.
+    Returns the launch counts."""
     from ngsf_hmm_tpu_torch.io.writers import write_geno, write_ibd, write_indF
-    from ngsf_hmm_tpu_torch.models.em import EMOptions, init_state, run_em
+    from ngsf_hmm_tpu_torch.models.em import (EMOptions, init_state,
+                                              rebuild_eprob, run_em)
     from ngsf_hmm_tpu_torch.utils import cuda_lib
     from ngsf_hmm_tpu_torch.utils.constants import (ALPHA_MAX, ALPHA_MIN,
                                                     F_MAX, F_MIN)
 
     S, N = gl.shape[0], gl.shape[1]
-    opts = EMOptions(freq_est=0, min_iters=3, max_iters=4, verbose=0)
+    opts = EMOptions(freq_est=freq_est, min_iters=3, max_iters=4, verbose=0)
+    # fixed frequencies are the simulated ones; estimated ones start flat
+    freq0 = freq_true if freq_est == 0 else np.full(S, 0.2)
     iters = []
 
     def trace(event, **kw):
@@ -342,33 +618,36 @@ def run_main_path(torch, dev, gl, dist, freq, indF0, alpha0):
         torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
-    state = init_state(gl, freq, indF0, alpha0, device=dev)
-    res = run_em(gl, dist, state, opts, trace=trace, device=dev)
+    state = init_state(gl, freq0, indF0, alpha0, device=dev)
+    e_prob0 = state.e_prob[:1000].clone()
+    with MafTimer(torch, dev) as maf_timer:
+        res = run_em(gl, dist, state, opts, trace=trace, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_em = time.perf_counter() - t0
-    # the outputs (3.4 GB at full size) go under the checkout's build
-    # directory, one file at a time
     st = res.state
     to_np = lambda t: t.detach().cpu().numpy()
-    scratch = cuda_lib.build_dir()
-    scratch.mkdir(parents=True, exist_ok=True)
     sizes = {}
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        out = os.path.join(tmp, "smoke")
-        for ext, write in (
-            ("indF", lambda f: write_indF(
-                f, res.tot_lkl, to_np(st.indF), to_np(st.alpha),
-                to_np(st.freq))),
-            ("ibd", lambda f: write_ibd(
-                f, to_np(st.ind_lkl), res.path, to_np(st.p_ibd))),
-            ("geno", lambda f: write_geno(
-                f, gl.astype(np.float64), to_np(st.freq).astype(np.float64),
-                res.path)),
-        ):
-            write(f"{out}.{ext}")
-            sizes[ext] = os.path.getsize(f"{out}.{ext}")
-            os.remove(f"{out}.{ext}")
+    if writers:
+        # the outputs (3.4 GB at full size) go under the checkout's build
+        # directory, one file at a time
+        scratch = cuda_lib.build_dir()
+        scratch.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            out = os.path.join(tmp, "smoke")
+            for ext, write in (
+                ("indF", lambda f: write_indF(
+                    f, res.tot_lkl, to_np(st.indF), to_np(st.alpha),
+                    to_np(st.freq))),
+                ("ibd", lambda f: write_ibd(
+                    f, to_np(st.ind_lkl), res.path, to_np(st.p_ibd))),
+                ("geno", lambda f: write_geno(
+                    f, gl.astype(np.float64),
+                    to_np(st.freq).astype(np.float64), res.path)),
+            ):
+                write(f"{out}.{ext}")
+                sizes[ext] = os.path.getsize(f"{out}.{ext}")
+                os.remove(f"{out}.{ext}")
     counts = dict(cuda_lib.LAUNCHES)
     plain = dict(cuda_lib.PLAIN_CALLS)
     t_all = time.perf_counter() - t0
@@ -376,53 +655,94 @@ def run_main_path(torch, dev, gl, dist, freq, indF0, alpha0):
     # ---- what came out
     if dev.type == "cuda":
         if plain:
-            fail(f"main path called plain versions: {plain}")
-        missing = [k for k in KERNELS if counts.get(k, 0) < 1]
+            fail(f"[{label}] the path called plain versions: {plain}")
+        missing = [k for k in need if counts.get(k, 0) < 1]
         if missing:
-            fail(f"main path never launched: {missing} (counts {counts})")
+            fail(f"[{label}] never launched: {missing} (counts {counts})")
     elif not plain:
         fail("rehearsal: no plain version was called")
     if not (opts.min_iters <= res.n_iters <= opts.max_iters
             and len(iters) == res.n_iters):
-        fail(f"expected 3 or 4 EM iterations, ran {res.n_iters}")
+        fail(f"[{label}] expected 3 or 4 EM iterations, ran {res.n_iters}")
     h = res.lkl_history
     if not np.all(np.isfinite(h)):
-        fail(f"non-finite total log-likelihood: {h}")
-    # freq is frozen, so EM is monotone; the optimizer only accepts float32
+        fail(f"[{label}] non-finite total log-likelihood: {h}")
+    # With freq frozen EM is monotone; the optimizer only accepts float32
     # decreases of each individual's objective, and the float32 ind_lkl
-    # round at |ll| ~ S: slack = N ulps of float32 at that magnitude
+    # round at |ll| ~ S: slack = N ulps of float32 at that magnitude. With
+    # freq estimated, monotonicity is only approximate: est_maf is the
+    # reference's damped fixed point cut at ITER_MAX + 1 passes (emulated
+    # by linearised windows on the macro tier), not the maximiser of the
+    # expected log-likelihood, so a late step can lose a little (3.5e-5 of
+    # |ll| seen at 2,003 x 33 on the CPU). There the gate is: the run ends
+    # above its start and no step loses more than 1e-4 of |ll|.
     slack = N * float(np.spacing(np.float32(abs(h[0]) / N)))
+    if freq_est:
+        slack = 1e-4 * abs(h[0])
+        if not h[-1] > h[0]:
+            fail(f"[{label}] total log-likelihood did not improve: {h}")
     if any(b < a - slack for a, b in zip(h, h[1:])):
-        fail(f"total log-likelihood decreased beyond {slack}: {h}")
-    indF, alpha = to_np(st.indF), to_np(st.alpha)
+        fail(f"[{label}] total log-likelihood decreased beyond {slack}: {h}")
+    indF, alpha, freq = to_np(st.indF), to_np(st.alpha), to_np(st.freq)
     f32 = np.float32
     if not (np.all(indF >= f32(F_MIN)) and np.all(indF <= f32(F_MAX))
             and np.all(alpha >= f32(ALPHA_MIN))
             and np.all(alpha <= f32(ALPHA_MAX))):
-        fail("indF / alpha outside their boxes")
+        fail(f"[{label}] indF / alpha outside their boxes")
     p_ibd = to_np(st.p_ibd)
     if p_ibd.shape != (S, N) or not np.all((p_ibd >= 0) & (p_ibd <= 1)):
-        fail("p_ibd not in [0, 1] or of the wrong shape")
+        fail(f"[{label}] p_ibd not in [0, 1] or of the wrong shape")
     if res.path.shape != (S, N) or not np.isin(res.path, (0, 1)).all():
-        fail("Viterbi path not in {0, 1} or of the wrong shape")
-    if sizes["geno"] != S * N * 3 * 8:
-        fail(f".geno holds {sizes['geno']} bytes, expected {S * N * 24}")
-    if sizes["ibd"] < N * (S + 1) + N * S * 9 or sizes["indF"] < S * 9:
-        fail(f"output files too small: {sizes}")
+        fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
+    # freq: [S] with no pad (the slabs' pad sentinel is 2.0), inside [0, 1]
+    if freq.shape != (S,) or not np.all(np.isfinite(freq)) or not np.all(
+            (freq >= 0) & (freq <= 1)):
+        fail(f"[{label}] freq not finite in [0, 1] or of the wrong shape")
+    e_head = st.e_prob[:1000]
+    if freq_est == 0:
+        if not np.array_equal(freq, freq0.astype(f32)) or not torch.equal(
+                e_head, e_prob0):
+            fail(f"[{label}] freq or e_prob moved under freq_est 0")
+    else:
+        f_err = float(np.abs(freq - freq_true).mean())
+        corr = float(np.corrcoef(freq, freq_true)[0, 1])
+        log(f"[{label}] freq: moved from 0.2 by mean "
+            f"{np.abs(freq - 0.2).mean():.4f}, mean |freq - simulated| "
+            f"{f_err:.4f}, correlation with the simulated {corr:.3f}")
+        # a sanity band, not a precision claim: the likelihoods are noisy
+        # (the true genotype is favoured about 6 : 1) and the damped
+        # fixed point stops at ITER_MAX + 1 passes
+        if f_err > 0.2 or corr < 0.3:
+            fail(f"[{label}] estimated freq unrelated to the simulated one")
+        want = rebuild_eprob(torch.as_tensor(gl[:1000]).to(dev),
+                             st.freq[:1000])
+        if torch.equal(e_head, e_prob0) or not torch.equal(e_head, want):
+            fail(f"[{label}] e_prob was not rebuilt from the final freq")
+        maf_ms = maf_timer.ms()
+        if len(maf_ms) != res.n_iters:
+            fail(f"[{label}] {len(maf_ms)} freq M-steps in {res.n_iters} "
+                 "iterations")
+    if writers:
+        if sizes["geno"] != S * N * 3 * 8:
+            fail(f".geno holds {sizes['geno']} bytes, expected {S * N * 24}")
+        if sizes["ibd"] < N * (S + 1) + N * S * 9 or sizes["indF"] < S * 9:
+            fail(f"output files too small: {sizes}")
     probes = np.diff([0] + [c for _, _, c in iters])
-    log(f"[main] S={S} N={N} float32 freq_est 0: init + {res.n_iters} EM "
-        f"iterations + Viterbi in {t_em:.2f} s, with writers {t_all:.2f} s")
+    log(f"[{label}] S={S} N={N} float32 freq_est {freq_est}: init + "
+        f"{res.n_iters} EM iterations + Viterbi in {t_em:.2f} s"
+        + (f", with writers {t_all:.2f} s" if writers else ""))
     for i, ((dt, tot, _), n_str) in enumerate(zip(iters, probes), 1):
-        log(f"[main] iteration {i}: {dt:.3f} s, tot_lkl {tot:.3f}, "
+        log(f"[{label}] iteration {i}: {dt:.3f} s, tot_lkl {tot:.3f}, "
             f"transfer+tangent streams {n_str} (E-step 1 + L-BFGS probes "
-            f"{n_str - 1}), L-BFGS outer iterations {res.opt_iters[i - 1]}")
-    log(f"[main] mean indF {indF.mean():.4f}, mean alpha {alpha.mean():.4f}, "
-        f"Viterbi IBD share {res.path.mean():.4f}, mean p_ibd "
-        f"{p_ibd.mean():.4f}")
+            f"{n_str - 1}), L-BFGS outer iterations {res.opt_iters[i - 1]}"
+            + (f", freq M-step {maf_ms[i - 1]:.3f} ms" if freq_est else ""))
+    log(f"[{label}] mean indF {indF.mean():.4f}, mean alpha "
+        f"{alpha.mean():.4f}, Viterbi IBD share {res.path.mean():.4f}, mean "
+        f"p_ibd {p_ibd.mean():.4f}")
     if dev.type == "cuda":
-        log(f"[main] peak torch.cuda.max_memory_allocated "
+        log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[main] launches {counts}; output bytes {sizes}")
+    log(f"[{label}] launches {counts}; output bytes {sizes}")
     return counts
 
 
@@ -446,7 +766,7 @@ def run_cli(dev, seed):
         out = os.path.join(tmp, "run")
         cmd = [sys.executable, "-m", "ngsf_hmm_tpu_torch", "--geno", geno,
                "--pos", pos, "--n_ind", str(N), "--n_sites", str(S),
-               "--freq_est", "0", "--freq", "0.25", "--indF", "0.1-0.05",
+               "--freq_est", "1", "--freq", "e", "--indF", "0.1-0.05",
                "--min_iters", "2", "--max_iters", "3", "--out", out,
                "--device", dev.type]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -484,7 +804,7 @@ def main():
     torch.set_grad_enabled(False)  # nothing here differentiates
     if args.rehearse:
         dev = torch.device("cpu")
-        args.sites, args.ind, args.check_sites = 2003, 7, 1501
+        args.sites, args.ind, args.check_sites = 2003, 33, 1501
     else:
         # ---- phase 1: the device
         if not torch.cuda.is_available():
@@ -507,7 +827,7 @@ def main():
         # ---- phase 2: build
         t0 = time.perf_counter()
         if args.ptxas:
-            lib = cuda_lib.build(("-Xptxas", "-v"))
+            lib = cuda_lib.build(cuda_lib.NVCC_FLAGS + ("-Xptxas", "-v"))
             for name, err in cuda_lib.build_log:
                 log(f"[build] {name}:\n{err}")
             os.remove(lib)  # the flag is part of the name: the run below
@@ -520,23 +840,66 @@ def main():
     results = {}
     t0 = time.perf_counter()
     S_c, N = args.check_sites, args.ind
-    gl, dist, freq, F0, a0 = simulate(S_c, N, args.seed + 7, n_chrom=1)
+    N_x = 7 if args.rehearse else 20  # the exact est_maf route: N < 32
+    gl_c, dist_c, freq_c, F0_c, a0_c = simulate(S_c, N, args.seed + 7,
+                                                n_chrom=1)
     step = max(2, min(100_000, S_c // 2))
-    dist[step::step] = np.inf  # chromosome breaks every ~100k sites
-    check_kernels(torch, dev, gl, dist, freq, F0, a0, "check", results)
-    del gl
+    dist_c[step::step] = np.inf  # chromosome breaks every ~100k sites
+    check_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c, "check",
+                  results, reference=True)
     log(f"[check] done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gl_x, dist_x, freq_x, F0_x, a0_x = simulate(S_c, N_x, args.seed + 11,
+                                                n_chrom=2)
+    f32 = torch.float32
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    gl_t = torch.as_tensor(gl_x).to(dev, f32)
+    prep = hk.prepare_gl_inputs(torch.exp(gl_t),
+                                torch.as_tensor(dist_x).to(dev, f32))
+    p_sites, _, _, p_slab = hk.posteriors_fused(
+        torch.as_tensor(F0_x).to(dev, f32), torch.as_tensor(a0_x).to(dev, f32),
+        prep, hk.freq_compact(torch.as_tensor(freq_x).to(dev, f32), prep),
+        return_slab=True)
+    exact_results = {}
+    check_maf_kernels(torch, dev, prep, p_slab,
+                      Recorder(torch, f"exact shape N={N_x}", exact_results),
+                      Timer(torch, dev), slab=False, p_sites=p_sites,
+                      gl_lin=torch.exp(gl_t))
+    del gl_t, prep, p_sites, p_slab
+    log(f"[exact shape] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     gl, dist, freq, F0, a0 = simulate(args.sites, N, args.seed)
     log(f"[main] inputs simulated in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results)
+    check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
+                  fmad_probe=True)
     log(f"[main shape] kernels checked in {time.perf_counter() - t0:.1f} s")
+    # maf_exact runs on the exact path only: its line keeps the times at
+    # that path's shape and the largest error over all three shapes
+    exact_results["maf_exact"]["max_abs_err"] = max(
+        exact_results["maf_exact"]["max_abs_err"],
+        results["maf_exact"]["max_abs_err"])
+    results["maf_exact"] = exact_results["maf_exact"]
 
-    # ---- phase 4: the main path
-    counts = run_main_path(torch, dev, gl, dist, freq, F0, a0)
+    # ---- phase 4: the paths (counts set to 0 before each, read after)
+    paths = {
+        "main": run_path(torch, dev, "main", gl, dist, freq, F0, a0, 1,
+                         CHAIN_KERNELS + SLAB_KERNELS, writers=True),
+    }
     del gl
+    paths["fixed"] = run_path(torch, dev, "fixed", gl_c, dist_c, freq_c,
+                              F0_c, a0_c, 0, CHAIN_KERNELS, writers=True)
+    paths["exact"] = run_path(torch, dev, "exact", gl_x, dist_x, freq_x,
+                              F0_x, a0_x, 1, CHAIN_KERNELS + ("maf_exact",),
+                              writers=False)
+    del gl_c, gl_x
+    counts = {name: sum(c.get(name, 0) for c in paths.values())
+              for name in KERNELS}
+    log(f"[paths] launches per path: {json.dumps(paths)}")
+    if dev.type == "cuda" and min(counts.values()) < 1:
+        fail(f"a kernel was launched on no path: {counts}")
 
     # ---- phase 5: the CLI
     run_cli(dev, args.seed)

@@ -5,11 +5,13 @@ A two-state HMM over per-site genotype likelihoods, trained by EM
 (forward-backward E-step; M-step for per-individual inbreeding F and
 transition rate alpha), decoded with Viterbi, emitting .indF / .ibd /
 .geno outputs. This package carries the fused single-device float32
-route with allele frequencies held fixed (--freq_est 0); see the README's
-"PyTorch/CUDA port" section for what it refuses.
+route with the allele frequencies estimated (--freq_est 1, the default)
+or held fixed (--freq_est 0); see the README's "PyTorch/CUDA port"
+section for what it refuses.
 
 Layout:
-  ops/      elementwise math (logsum, HWE, transitions, emissions)
+  ops/      elementwise math (logsum, HWE, transitions, emissions) and
+            est_maf with its kernels' wrappers
   models/   HMM kernels and their plain versions, L-BFGS, the EM engine
   io/       readers/writers with byte parity, GSL RNG parity
   utils/    constants, signals, the CUDA build/loader

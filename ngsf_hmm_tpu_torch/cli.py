@@ -6,16 +6,18 @@ one or two leading dashes and unambiguous prefixes, values via "--opt v"
 or "--opt=v". Verbose levels 1-3 reproduce the reference's progress lines.
 
 This package carries one tier: the fused float32 chain kernels on a
-single device with allele frequencies held fixed (--freq_est 0). It is the
-default for --kernel / --dtype here; the flags of tiers still to be ported
-(--freq_est 1/2, --e_prob 2, --mesh, --stream_chunk, --checkpoint,
---n_rep > 1, --opt compat, other --kernel / --dtype values, --gl_bf16 1,
---profile) are parsed and refused with an error.
+single device, with the allele frequencies estimated every iteration
+(--freq_est 1, the default as in the reference) or held fixed
+(--freq_est 0). It is the default for --kernel / --dtype here; the flags
+of tiers still to be ported (--freq_est 2, --e_prob 2, --mesh,
+--stream_chunk, --checkpoint, --n_rep > 1, --opt compat, other --kernel /
+--dtype values, --gl_bf16 1, --profile) are parsed and refused with an
+error.
 
 Example:
     python -m ngsf_hmm_tpu_torch --geno data.glf.gz --loglkl --n_ind 20 \
-        --n_sites 100000 --pos data.pos.gz --freq_est 0 --freq 0.2 \
-        --out run1 [--device cuda|cpu]
+        --n_sites 100000 --pos data.pos.gz --freq e --out run1 \
+        [--device cuda|cpu]
 """
 
 import os
@@ -312,10 +314,8 @@ def _refuse_unported(p):
     if p["kernel"] != "pallas":
         error("main", f"--kernel {p['kernel']} is not ported yet: this "
                       "package runs the fused kernel tier ('pallas') only")
-    if p["freq_est"] != 0:
-        error("main", f"--freq_est {p['freq_est']} is not ported yet "
-                      "(the est_maf kernels): run with --freq_est 0 and "
-                      "--freq <value|file>")
+    if p["freq_est"] == 2:
+        error("main", "--freq_est 2 (the LD path) is not ported yet")
     if p["e_prob"] != 1:
         error("main", "--e_prob 2 (the LD path) is not ported yet")
     if p["opt"] != "speed":
@@ -330,8 +330,6 @@ def _refuse_unported(p):
     if p["resume"] or p["stream_chunk"] or p["stream_file"]:
         error("main", "--resume / --stream_chunk / --stream_file are not "
                       "ported yet")
-    if p["freq"] == "e":
-        error("main", "--freq e needs est_maf, which is not ported yet")
     if p["device"] not in ("cuda", "cpu") and not str(
             p["device"]).startswith("cuda:"):
         error("main", f"invalid --device {p['device']!r} (cuda|cpu)")
@@ -434,12 +432,15 @@ def main(argv=None):
     if p["verbose"] >= 1:
         if fspec == "r":
             print("==> Using random initial frequency values.")
+        elif fspec == "e":
+            print("==> Estimating initial frequency values assuming HWE.")
         elif os.path.isfile(fspec):
             print(f'==> Reading initial frequency values from file "{fspec}".')
         else:
             print(f"==> Setting initial frequency values to: {fspec}")
     try:
-        freq0 = init_freq(fspec, p["n_sites"], rng, freq_est=p["freq_est"])
+        freq0 = init_freq(fspec, p["n_sites"], rng, gl=gl_t,
+                          freq_est=p["freq_est"], device=dev)
     except ValueError as e:
         error("init_output", str(e))
     if p["verbose"] >= 1:
@@ -499,13 +500,31 @@ def main(argv=None):
                 print("==> Inbreeding and transition parameter not estimated!")
             else:
                 print("==> Update inbreeding and transition parameter")
-            print("==> Alelle frequencies not estimated!")
+            if p["freq_est"] == 0:
+                print("==> Alelle frequencies not estimated!")
+            else:
+                print(
+                    "==> Estimating allele frequencies and calculating "
+                    "emission probabilities"
+                )
         elif event == "iter_done":
             if v >= 4:
                 st = kw["state"]
                 for i in range(p["n_ind"]):
                     print(f"\t{float(st.indF[i]):.10f}"
                           f"\t{float(st.alpha[i]):.6f}")
+            if v >= 7 and p["freq_est"] != 0:
+                # per-site freq/emission dump (EM.cpp:265-270), printed
+                # once per iteration from the updated state
+                st = kw["state"]
+                freq = _np(st.freq).astype(np.float64)
+                em = np.exp(_np(st.e_prob).astype(np.float64))
+                for s in range(p["n_sites"]):
+                    row = "".join(
+                        f"\t{em[s, i, 0]:f}/{em[s, i, 1]:f}"
+                        for i in range(p["n_ind"])
+                    )
+                    print(f"Site {s + 1}; freq: {freq[s]:f}; emission: {row}")
             if v >= 3:
                 # per-phase timer block (EM.cpp:277-284): the iteration
                 # is not split into host-visible phases here, so the

@@ -79,14 +79,15 @@ def init_indF_alpha(spec, n_ind, rng: GslTaus):
     return indF, alpha
 
 
-def init_freq(spec, n_sites, rng: GslTaus, gl=None, freq_est=1):
-    """Initial freq [S] from a --freq spec.
+def init_freq(spec, n_sites, rng: GslTaus, gl=None, freq_est=1,
+              device="cuda"):
+    """Initial freq [S] (a numpy array) from a --freq spec.
 
-    gl ([S, N, 3] log, needed for spec == "e") feeds the HWE est_maf
-    estimate with F = 0 (parse_args.cpp:312-318). Under freq_est == 2
-    the reference instead derives sites >= 2 from pair-EM haplotype
-    frequencies (parse_args.cpp:316-321) -- here via the CORRECTED
-    two-site EM (ops/haplo.ld_init_freq; the reference's is NaN-broken).
+    gl ([S, N, 3] log, tensor or numpy array, needed for spec == "e")
+    feeds the HWE est_maf estimate with F = 0 (parse_args.cpp:312-318),
+    run in log space at gl's dtype on `device`. Under freq_est == 2 the
+    reference instead derives sites >= 2 from pair-EM haplotype
+    frequencies (parse_args.cpp:316-321); that path is not ported.
     """
     freq = np.full(n_sites, FREQ_RNG_MIN)
     if spec == "r":
@@ -94,10 +95,20 @@ def init_freq(spec, n_sites, rng: GslTaus, gl=None, freq_est=1):
             freq[s] = FREQ_RNG_MIN + rng.uniform() * (FREQ_RNG_MAX - FREQ_RNG_MIN)
         return freq
     if spec == "e":
-        raise NotImplementedError(
-            "freq init 'e' needs est_maf "
-            "(ROADMAP queue 1: 'freq_est 1' slice)"
-        )
+        import torch
+
+        from ..models.em import _device
+        from ..ops.maf import est_maf
+
+        if gl is None:
+            raise ValueError("freq init 'e' needs genotype likelihoods")
+        if freq_est == 2:
+            raise NotImplementedError(
+                "freq init 'e' under freq_est 2 "
+                "(ROADMAP queue 1: 'The LD path')")
+        gl = torch.as_tensor(gl).to(_device(device))
+        zeros = torch.zeros(gl.shape[:2], dtype=gl.dtype, device=gl.device)
+        return est_maf(gl, zeros).cpu().numpy()
     if os.path.isfile(spec):
         s = 0
         with _open_maybe_gz(spec) as fh:

@@ -8,9 +8,11 @@ L-BFGS on analytic gradients, and the convergence bookkeeping
 (EM.cpp:56,75-97) is replicated exactly on the host (models/driver.py).
 
 This module carries the fused single-device route only: float32, the
-chain kernels of models/hmm_kernels.py, allele frequencies held fixed
-(freq_est 0), e_prob_calc 1, one replicate. Every other option value
-raises NotImplementedError naming the ROADMAP item that will bring it.
+chain kernels of models/hmm_kernels.py, the freq M-step on the est_maf
+kernels of ops/maf_kernels.py (freq_est 1, the default) or allele
+frequencies held fixed (freq_est 0), e_prob_calc 1, one replicate. Every
+other option value raises NotImplementedError naming the ROADMAP item
+that will bring it.
 
 State layout (site-major, 0-based):
   gl      [S, N, 3]  normalised log genotype likelihoods (read-only)
@@ -27,8 +29,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.emissions import calc_emission
+from ..ops import maf_kernels
+from ..ops.emissions import calc_emission, emission_probs_linear
 from ..ops.hwe import check_interv
+from ..ops.maf import macro_schedule
 from ..utils.constants import ALPHA_MAX, ALPHA_MIN, F_MAX, F_MIN
 from . import hmm_kernels
 from .hmm import viterbi
@@ -40,10 +44,10 @@ class EMOptions:
     """Engine flags mirroring the reference CLI (parse_args.cpp:43-68).
 
     The defaults are those of the one tier this package has (the fused
-    float32 kernels with freq held fixed); the fields of tiers still to
-    come are kept so that callers can name them and be refused."""
+    float32 kernels); the fields of tiers still to come are kept so that
+    callers can name them and be refused."""
 
-    freq_est: int = 0
+    freq_est: int = 1
     e_prob_calc: int = 1
     indF_fixed: bool = False
     alpha_fixed: bool = False
@@ -94,14 +98,10 @@ class EMResult:
     opt_memory: object = None
 
 
-def _refuse(freq_est=0, e_prob_calc=1, n_rep=1, numerics="pallas",
+def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
             block_size=None, gl_bf16=False):
-    """Raise for every option value this slice does not carry."""
-    if freq_est == 1:
-        raise NotImplementedError(
-            "freq_est 1 (ROADMAP queue 1: 'freq_est 1' slice, est_maf "
-            "kernels)")
-    if freq_est != 0:
+    """Raise for every option value this package does not carry yet."""
+    if freq_est not in (0, 1):
         raise NotImplementedError(
             f"freq_est {freq_est} (ROADMAP queue 1: 'The LD path')")
     if e_prob_calc != 1:
@@ -155,11 +155,29 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
     )
 
 
+def in_loop_emission_form(freq_est, numerics="pallas", site_sharded=False):
+    """Which recompute form ``state.e_prob`` carries AFTER an iteration:
+    "linear" = ``log(ops.emissions.emission_probs_linear(...))``, "log" =
+    ``ops.emissions.calc_emission``. Whoever rebuilds emissions from
+    params alone must use exactly this form. freq_est 0 freezes the init
+    form ("log"); freq_est 1 on the fused tier recomputes linearly."""
+    if freq_est == 1 and (site_sharded or numerics in ("linear", "pallas")):
+        return "linear"
+    return "log"
+
+
+def rebuild_eprob(gl, freq):
+    """The in-loop ("linear") emission form at `freq`: log emissions
+    [S, N, 2] from log gl [S, N, 3]."""
+    return torch.log(
+        emission_probs_linear(torch.exp(gl), freq[:, None])).to(gl.dtype)
+
+
 def em_iteration(
     gl,
     dist,
     state: EMState,
-    freq_est: int = 0,
+    freq_est: int = 1,
     e_prob_calc: int = 1,
     indF_fixed: bool = False,
     alpha_fixed: bool = False,
@@ -170,13 +188,18 @@ def em_iteration(
     return_prep: bool = False,
     opt_memory=None,
     return_opt: bool = False,
+    defer_emissions: bool = False,
     defer_posteriors: bool = False,
     gl_bf16: bool = False,
 ):
     """One EM iteration (reference: iter_EM, EM.cpp:139-289) on the fused
     route: the chain kernels compute the emissions in-kernel from
-    (gl, freq), and with freq_est 0 the emissions stay those of the
-    initial freq (state.freq and state.e_prob pass through untouched).
+    (gl, freq). With freq_est 0 the emissions stay those of the initial
+    freq (state.freq and state.e_prob pass through untouched). With
+    freq_est 1 the freq M-step reads the gl slabs and the RAW posterior
+    slab of this iteration's E-step: est_maf_slab (macro-stepped) where
+    macro_schedule(N) gives a schedule, else est_maf_exact on the snapped
+    posterior (N < 32).
 
     prep_slabs / return_prep: thread the gl slabs + dist compact across
     iterations (they are constants of the run). prep_slabs is the
@@ -187,10 +210,18 @@ def em_iteration(
     curvature memory ((S, Y, valid, head)) across EM iterations;
     return_opt=True appends the updated memory to the return tuple.
 
+    defer_emissions: skip the per-iteration state.e_prob recompute -- the
+    chain kernels build emissions in-kernel from (gl, freq), so inside
+    the loop e_prob is write-only; the returned state carries the STALE
+    e_prob and run_em rebuilds it (rebuild_eprob, the in-loop form) at
+    loop exit.
+
     defer_posteriors: skip the slab -> [S, N] unpack + check_interv snap
-    (nothing in the loop reads the unpacked posterior when freq is
-    fixed); the returned state carries the STALE p_ibd and run_em
-    rebuilds it at loop exit.
+    (nothing in the loop reads the unpacked posterior: both est_maf
+    routes read the raw slab, the exact one snapping as it reads); the
+    returned state carries the STALE p_ibd and run_em rebuilds it at loop
+    exit. The kernels are deterministic, so the rebuilt p_ibd equals the
+    one the undeferred loop carries bit for bit on either route.
     """
     _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size, gl_bf16)
     S, N = gl.shape[0], gl.shape[1]
@@ -213,9 +244,9 @@ def em_iteration(
         A_g0, A_reps0 = hmm_kernels.transfer_grad_reps_fused(
             state.indF, state.alpha, prep2, fc
         )
-    p_raw, ll_f, ll_b = hmm_kernels.posteriors_fused(
+    p_raw, ll_f, ll_b, p_slab = hmm_kernels.posteriors_fused(
         state.indF, state.alpha, prep2, fc, A_reps=A_reps0,
-        return_p=not defer_posteriors,
+        return_p=not defer_posteriors, return_slab=True,
     )
     p_ibd = (state.p_ibd if defer_posteriors
              else check_interv(p_raw.to(dtype)))
@@ -260,9 +291,19 @@ def em_iteration(
         )
         indF, alpha = x_opt[:, 0], x_opt[:, 1]
 
-    # ---- M-step 2: freq and the emissions are frozen (freq_est 0; the
-    # recompute lives inside the reference's freq-est branch)
-    new_state = EMState(state.freq, indF, alpha, state.e_prob, p_ibd, ind_lkl)
+    # ---- M-step 2: per-site freq + emission recompute (EM.cpp:210-272)
+    if freq_est == 0:
+        # emissions frozen too: the recompute lives inside the
+        # reference's freq-est branch
+        freq, e_prob = state.freq, state.e_prob
+    else:
+        if macro_schedule(N) is not None:
+            freq = maf_kernels.est_maf_slab(prep2, p_slab).to(dtype)
+        else:
+            freq = maf_kernels.est_maf_exact(prep2, p_slab,
+                                             snap=True).to(dtype)
+        e_prob = state.e_prob if defer_emissions else rebuild_eprob(gl, freq)
+    new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ind_lkl)
     out = (new_state, IterStats(fwbw_maxdiff, opt_iters))
     if return_prep:
         out = out + ((prep2["g0"], prep2["g2"], prep2["dc"]),)
@@ -338,11 +379,13 @@ def run_em(
     # the warm-started M-step's curvature memory, threaded likewise
     warm = opts.warm_mstep and not (opts.indF_fixed and opts.alpha_fixed)
     opt_holder = {"mem": opt_memory if warm else None}
-    # nothing in the loop reads the unpacked posterior (freq is fixed):
-    # defer the slab -> [S, N] unpack + snap to loop exit. The rebuild
-    # needs the final iteration's PRE-update params (the E-step runs on
-    # the entering state), tracked per step below. verbose >= 7 dumps
-    # per-iteration state from the trace hook: keep it live there.
+    # nothing in the loop reads state.e_prob (the kernels build emissions
+    # from (gl, freq)) or the unpacked posterior (est_maf reads the raw
+    # slab): defer both to loop exit. The posterior rebuild needs the
+    # final iteration's PRE-update params (the E-step runs on the
+    # entering state), tracked per step below. verbose >= 7 dumps
+    # per-iteration state from the trace hook: keep both live there.
+    defer = opts.freq_est == 1 and opts.verbose < 7
     defer_p = opts.verbose < 7
     prev_params = {"v": None}
 
@@ -378,6 +421,7 @@ def run_em(
             return_prep=True,
             opt_memory=opt_holder["mem"] if warm else None,
             return_opt=warm,
+            defer_emissions=defer,
             defer_posteriors=defer_p,
             gl_bf16=opts.gl_bf16,
         )
@@ -405,6 +449,8 @@ def run_em(
     )
     tot = float(bk.tot[0])
     converged = bk.n_iter < opts.max_iters
+    if defer and bk.n_iter > 0:
+        state = state._replace(e_prob=rebuild_eprob(gl, state.freq))
     if defer_p and bk.n_iter > 0:
         state = _rebuild_pibd(state)
 

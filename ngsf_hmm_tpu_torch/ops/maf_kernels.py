@@ -1,0 +1,332 @@
+"""The freq M-step on the chain kernels' slabs: est_maf without relayout.
+
+Inside the EM loop the gl slabs (g0, g2; g1 = 1 - g0 - g2) are resident
+run constants and the posterior comes out of the fw_post kernel in the
+same [bs, nb, N] layout, so the damped fixed point (ops/maf.py) runs
+directly on those. Four CUDA kernels (``csrc/maf_*.cu``), one warp per
+site (one thread per site for the window):
+
+  maf_state_grad  K0 real damped passes, then (cn, cd, dcn, dcd)
+  maf_sums_grad   (cn, cd, dcn, dcd) at a given freq
+  maf_window      M virtual passes on the linearised per-site model
+  maf_exact       the exact fixed point, up to ITER_MAX + 1 passes
+
+Each kernel has a wrapper that launches it for CUDA tensors and takes the
+plain PyTorch version beside it only for CPU tensors. The plain versions
+are a Python loop over passes of vectorised [bs, nb, N] tensor ops with
+the kernels' formulas in the kernels' order; only the order of the sum
+over individuals differs (torch.sum against a strided lane sum and a
+shuffle butterfly), so the two agree to float32 rounding and, where that
+rounding flips the ``|prev - freq| > EPSILON`` test of a site, to one
+damped step of that site (about 1e-5).
+
+Per-site state and outputs are [rows, bs, nb], site s = j * bs + r at
+[:, r, j]. ``est_maf_slab`` and ``est_maf_exact`` return freq [S].
+"""
+
+import torch
+
+from ..utils import cuda_lib
+from ..utils.constants import EPSILON, ITER_MAX
+from ..utils.cuda_lib import LAUNCHES, PLAIN_CALLS
+from .maf import macro_rounds, macro_schedule
+
+_f32 = torch.float32
+_HET_FLOOR = 1e-15  # linear het floor, calc_HWE F==1 (gen_func.cpp:946-956)
+
+
+# ---------------------------------------------------------------------------
+# shared arithmetic of the plain versions (mirrors csrc/maf_common.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _planes_plain(g0, g2, F):
+    """Pass-invariant Horner planes of every cell and T = sum_n (2 - F):
+    (dict of [bs, nb, N] tensors, T [bs, nb])."""
+    g1 = 1.0 - g0 - g2
+    zero = torch.zeros_like(F)
+    two_m_F = 2.0 - F
+    het = F == 1.0
+    tn1 = torch.where(het, zero, 2.0 - 2.0 * F)
+    K = torch.where(het, g1 * _HET_FLOOR, zero)
+    h = g1 * tn1
+    B = h + (g0 + g2) * F
+    P = h + g2 * F * two_m_F
+    planes = dict(d0=g0 + K, d1=B - 2.0 * g0, d2=g0 - B + g2,
+                  QmP=g2 * two_m_F - P, K=K, P=P, R=h * F, KF=K * F)
+    return planes, two_m_F.sum(-1)
+
+
+def _sums_plain(q, T, freq, grad):
+    """(cn, cd) or (cn, cd, dcn, dcd), each [bs, nb], at freq [bs, nb]."""
+    f = freq[..., None]
+    inv = 1.0 / (q["d0"] + (q["d1"] + q["d2"] * f) * f)
+    cni = (q["K"] + (q["P"] + q["QmP"] * f) * f) * inv
+    cdi = (q["KF"] + (q["R"] * (1.0 - f)) * f) * inv
+    cn, cd = cni.sum(-1), T + cdi.sum(-1)
+    if not grad:
+        return cn, cd
+    dD = q["d1"] + (q["d2"] + q["d2"]) * f
+    dcn = ((q["P"] + (q["QmP"] + q["QmP"]) * f - cni * dD) * inv).sum(-1)
+    dcd = ((q["R"] * (1.0 - (f + f)) - cdi * dD) * inv).sum(-1)
+    return cn, cd, dcn, dcd
+
+
+def _advance_plain(st, cn, cd, inside):
+    """One damped update + the reference's post-increment exit test on
+    st = (freq, num, den, active), active as 0/1 float32."""
+    freq, num, den, active = st
+    prev = freq
+    num = num + active * cn
+    den = den + active * cd
+    freq = freq + active * (num / den - freq)
+    moved = (torch.abs(prev - freq) > EPSILON).to(_f32)
+    active = active * moved if inside else torch.zeros_like(active)
+    return freq, num, den, active
+
+
+def _init_state(shape, device):
+    z = torch.zeros(shape, dtype=_f32, device=device)
+    return (torch.full(shape, 0.01, dtype=_f32, device=device), z, z.clone(),
+            torch.ones(shape, dtype=_f32, device=device))
+
+
+def _check_slabs(name, g0, g2, p):
+    bs, nb, N = g0.shape
+    for nm, t in (("g0", g0), ("g2", g2), ("p", p)):
+        cuda_lib.require(t, f"{name}.{nm}", _f32, (bs, nb, N))
+        if t.device != g0.device:
+            raise ValueError(f"{name}.{nm}: on {t.device}, slabs on "
+                             f"{g0.device}")
+    return bs, nb, N
+
+
+# ---------------------------------------------------------------------------
+# kernel A: maf_state_grad
+# ---------------------------------------------------------------------------
+
+
+def _state_grad_plain(g0, g2, p, K0, tally=None):
+    """Plain version of csrc/maf_state_grad.cu -> [8, bs, nb]. tally: a
+    list that receives, per pass, the number of sites still active (the
+    work this input needs; a converged site's passes are no-ops)."""
+    PLAIN_CALLS["maf_state_grad"] += 1
+    q, T = _planes_plain(g0, g2, p)
+    st = _init_state(g0.shape[:2], g0.device)
+    for k in range(K0):
+        if tally is not None:
+            tally.append(st[3].sum())
+        st = _advance_plain(st, *_sums_plain(q, T, st[0], False),
+                            k + 1 <= ITER_MAX)
+    return torch.stack(st + _sums_plain(q, T, st[0], True))
+
+
+def _k_maf_state_grad(g0, g2, p, K0):
+    """K0 real damped passes per site, then the sums and their
+    freq-derivatives: [8, bs, nb], rows (freq, num, den, active, cn, cd,
+    dcn, dcd).
+
+    Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py
+    :_run_state_grad_slab. Bound by bytes (three slabs read once); the
+    cells' planes stay in registers across the passes."""
+    if not g0.is_cuda:
+        return _state_grad_plain(g0, g2, p, K0)
+    bs, nb, N = _check_slabs("maf_state_grad", g0, g2, p)
+    out = torch.empty((8, bs, nb), dtype=_f32, device=g0.device)
+    rc = cuda_lib.load().ngsf_maf_state_grad(
+        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
+        N, int(K0), cuda_lib.stream())
+    cuda_lib.check(rc, "maf_state_grad")
+    LAUNCHES["maf_state_grad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel B: maf_sums_grad
+# ---------------------------------------------------------------------------
+
+
+def _sums_grad_plain(g0, g2, p, fq):
+    """Plain version of csrc/maf_sums_grad.cu -> [4, bs, nb]."""
+    PLAIN_CALLS["maf_sums_grad"] += 1
+    q, T = _planes_plain(g0, g2, p)
+    return torch.stack(_sums_plain(q, T, fq, True))
+
+
+def _k_maf_sums_grad(g0, g2, p, fq):
+    """(cn, cd, dcn, dcd) [4, bs, nb] at the per-site freq fq [bs, nb].
+
+    Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py
+    :_run_sums_grad_slab. Bound by bytes (three slabs read once)."""
+    if not g0.is_cuda:
+        return _sums_grad_plain(g0, g2, p, fq)
+    bs, nb, N = _check_slabs("maf_sums_grad", g0, g2, p)
+    cuda_lib.require(fq, "maf_sums_grad.fq", _f32, (bs, nb))
+    out = torch.empty((4, bs, nb), dtype=_f32, device=g0.device)
+    rc = cuda_lib.load().ngsf_maf_sums_grad(
+        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), fq.data_ptr(),
+        out.data_ptr(), bs * nb, N, cuda_lib.stream())
+    cuda_lib.check(rc, "maf_sums_grad")
+    LAUNCHES["maf_sums_grad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the virtual window
+# ---------------------------------------------------------------------------
+
+
+def _virtual_window_plain(st, grads, passes0, M_r, tally=None):
+    """Plain version of csrc/maf_window.cu: st / grads [4, bs, nb] ->
+    [4, bs, nb]. tally: as in _state_grad_plain."""
+    PLAIN_CALLS["maf_window"] += 1
+    cn0, cd0, dcn, dcd = grads
+    st = tuple(st)
+    f0 = st[0]
+    for k in range(M_r):
+        if tally is not None:
+            tally.append(st[3].sum())
+        df = st[0] - f0
+        st = _advance_plain(st, cn0 + dcn * df, cd0 + dcd * df,
+                            passes0 + k + 1 <= ITER_MAX)
+    return torch.stack(st)
+
+
+def _k_maf_window(st, grads, passes0, M_r):
+    """M_r virtual damped passes on the linearised accumulator model:
+    st (freq, num, den, active) and grads (cn, cd, dcn, dcd), each
+    [4, bs, nb] -> the advanced st [4, bs, nb]. Step k is inside the
+    reference's trip budget while passes0 + k + 1 <= ITER_MAX.
+
+    Stands for ngsf_hmm_tpu/ops/maf_pallas.py:_virtual_window (unrolled
+    XLA elementwise math there). Bound by the latency of M_r dependent
+    divisions a thread, far above its bytes."""
+    if not st.is_cuda:
+        return _virtual_window_plain(st, grads, passes0, M_r)
+    _, bs, nb = st.shape
+    cuda_lib.require(st, "maf_window.st", _f32, (4, bs, nb))
+    cuda_lib.require(grads, "maf_window.grads", _f32, (4, bs, nb))
+    if grads.device != st.device:
+        raise ValueError("maf_window: st and grads on different devices")
+    out = torch.empty_like(st)
+    rc = cuda_lib.load().ngsf_maf_window(
+        st.data_ptr(), grads.data_ptr(), out.data_ptr(), bs * nb,
+        int(passes0), int(M_r), cuda_lib.stream())
+    cuda_lib.check(rc, "maf_window")
+    LAUNCHES["maf_window"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the exact fixed point
+# ---------------------------------------------------------------------------
+
+
+def _snap(p):
+    """check_interv (ops/hwe.py) on the raw posterior slab."""
+    p = torch.where(p < EPSILON, torch.zeros_like(p), p)
+    return torch.where(p > 1.0 - EPSILON, torch.ones_like(p), p)
+
+
+def _exact_plain(g0, g2, p, snap, tally=None):
+    """Plain version of csrc/maf_exact.cu -> freq [bs, nb]. tally: as in
+    _state_grad_plain."""
+    PLAIN_CALLS["maf_exact"] += 1
+    F = _snap(p) if snap else p
+    g1 = 1.0 - g0 - g2
+    two_m_F = 2.0 - F
+    tn1 = 2.0 - 2.0 * F
+    het = F == 1.0
+    floor = torch.full_like(F, _HET_FLOOR)
+    T = two_m_F.sum(-1)
+    st = _init_state(g0.shape[:2], g0.device)
+    k = 0
+    while bool(st[3].any()):
+        if tally is not None:
+            tally.append(st[3].sum())
+        f = st[0][..., None]
+        pq = (1.0 - f) * f
+        a = pq * F
+        pr0 = (1.0 - f) * (1.0 - f) + a
+        pr1 = torch.where(het, floor, pq * tn1)
+        pr2 = f * f + a
+        n0, n1, n2 = g0 * pr0, g1 * pr1, g2 * pr2
+        inv = 1.0 / (n0 + n1 + n2)
+        pp1, pp2 = n1 * inv, n2 * inv
+        cn = (pp1 + pp2 * two_m_F).sum(-1)
+        cd = T + (pp1 * F).sum(-1)
+        st = _advance_plain(st, cn, cd, k + 1 <= ITER_MAX)
+        k += 1
+    return st[0]
+
+
+def _k_maf_exact(g0, g2, p, snap):
+    """The exact damped fixed point per site: freq [bs, nb]. snap=True
+    applies check_interv's snap to the posterior as it is read.
+
+    Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py:_run. Bound by
+    operations (up to ITER_MAX + 1 passes over cells read once); the
+    cells stay in registers and each site stops at its own convergence."""
+    if not g0.is_cuda:
+        return _exact_plain(g0, g2, p, snap)
+    bs, nb, N = _check_slabs("maf_exact", g0, g2, p)
+    out = torch.empty((bs, nb), dtype=_f32, device=g0.device)
+    rc = cuda_lib.load().ngsf_maf_exact(
+        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
+        N, int(bool(snap)), cuda_lib.stream())
+    cuda_lib.check(rc, "maf_exact")
+    LAUNCHES["maf_exact"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public functions (freq [S], as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _site_vector(x, prep2):
+    """[bs, nb] per-site values -> [S]."""
+    return x.t().reshape(-1)[:prep2["S"]]
+
+
+def est_maf_slab(prep2, p_slab, macro=True):
+    """Per-site MAF from the gl slabs + the RAW posterior slab that
+    posteriors_fused(..., return_slab=True) emitted. Returns freq [S]
+    float32.
+
+    Kernel A runs the K0 real passes and the first gradient evaluation;
+    each round then advances through its virtual window (maf_window), and
+    rounds after the first re-evaluate the sums with kernel B at the
+    advanced freq. macro: True resolves the schedule with
+    macro_schedule(N); a (K0, M) pair overrides. Raises ValueError where
+    there is no schedule (N < 32: use est_maf_exact).
+
+    The slab holds UNSNAPPED posteriors: a perturbation of at most EPSILON
+    against the snapped state.p_ibd, inside this tier's drift envelope;
+    the het floor still engages on the exact 1.0 that fw_post produces
+    for certain posteriors. Pad sites (s >= S) are computed on their
+    harmless slab values and cut from the result."""
+    if macro is True:
+        macro = macro_schedule(prep2["N"])
+    if not macro:
+        raise ValueError("est_maf_slab requires a macro schedule")
+    K0, M = macro
+    g0, g2 = prep2["g0"], prep2["g2"]
+    st8 = _k_maf_state_grad(g0, g2, p_slab, K0)
+    st, grads = st8[:4], st8[4:]
+    passes = K0
+    for r, M_r in enumerate(macro_rounds(K0, M)):
+        if r > 0:
+            grads = _k_maf_sums_grad(g0, g2, p_slab, st[0])
+        st = _k_maf_window(st, grads, passes, M_r)
+        passes += M_r
+    return _site_vector(st[0], prep2)
+
+
+def est_maf_exact(prep2, p_slab, snap=True):
+    """Per-site MAF by the exact damped fixed point from the gl slabs +
+    the raw posterior slab; snap=True reads the posterior through
+    check_interv, as the exact tiers of the reference do. Returns freq
+    [S] float32. Serves N < 32, where est_maf_slab has no schedule."""
+    return _site_vector(
+        _k_maf_exact(prep2["g0"], prep2["g2"], p_slab, snap), prep2)

@@ -32,8 +32,12 @@ SOURCES = (
     "fw_post.cu",
     "combine_blocks.cu",
     "viterbi.cu",
+    "maf_state_grad.cu",
+    "maf_sums_grad.cu",
+    "maf_window.cu",
+    "maf_exact.cu",
 )
-HEADERS = ("hmm_common.cuh",)
+HEADERS = ("hmm_common.cuh", "maf_common.cuh")
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
 # multiply-adds differently.
@@ -45,7 +49,7 @@ NVCC_FLAGS = (
 LAUNCHES = collections.Counter()
 PLAIN_CALLS = collections.Counter()
 
-_lib = None
+_libs = {}  # flags -> loaded library
 build_log = []  # one (source, nvcc stderr) pair per compiled source
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -57,6 +61,10 @@ _SIGNATURES = {
     "ngsf_combine_blocks": [_P, _L, _L, _L] + [_P] * 4 + [_I] * 3 + [_P],
     "ngsf_viterbi_f32": [_P] * 9 + [_I] * 3 + [_P],
     "ngsf_viterbi_f64": [_P] * 9 + [_I] * 3 + [_P],
+    "ngsf_maf_state_grad": [_P] * 4 + [_L, _I, _I, _P],
+    "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
+    "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
+    "ngsf_maf_exact": [_P] * 4 + [_L, _I, _I, _P],
 }
 
 
@@ -84,22 +92,23 @@ def _nvcc():
     return exe
 
 
-def _digest(extra_flags):
+def _digest(flags):
     h = hashlib.sha256()
     for name in HEADERS + SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build(extra_flags=()):
-    """Compile the sources (in parallel) and link them; returns the path
-    of the shared library. A library already built from the same sources
-    and flags is reused."""
+def build(flags=NVCC_FLAGS):
+    """Compile the sources (in parallel) with `flags` and link them;
+    returns the path of the shared library. A library already built from
+    the same sources and flags is reused."""
+    flags = tuple(flags)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"libngsf_hmm_{_digest(extra_flags)}.so"
+    lib_path = out_dir / f"libngsf_hmm_{_digest(flags)}.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()
@@ -107,7 +116,7 @@ def build(extra_flags=()):
         procs = []
         for name in SOURCES:
             obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-c",
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c",
                    str(CSRC / name), "-o", obj]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -133,17 +142,19 @@ def build(extra_flags=()):
     return lib_path
 
 
-def load():
-    """The loaded library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def load(flags=NVCC_FLAGS):
+    """The loaded library (built on first call). The package runs the one
+    built with NVCC_FLAGS; other flags give a second library for
+    measurements."""
+    flags = tuple(flags)
+    if flags not in _libs:
+        lib = ctypes.CDLL(str(build(flags)))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[flags] = lib
+    return _libs[flags]
 
 
 def stream():

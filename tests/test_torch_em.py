@@ -1,7 +1,9 @@
-"""The slice as a whole: ngsf_hmm_tpu_torch.models.em.run_em (CPU, plain
-versions of the kernels) against ngsf_hmm_tpu.models.em.run_em with
+"""The first slice as a whole: ngsf_hmm_tpu_torch.models.em.run_em (CPU,
+plain versions of the kernels) against ngsf_hmm_tpu.models.em.run_em with
 EMOptions(numerics="pallas", freq_est=0) (Pallas interpret mode), both in
-float32 from one state carried across with convert.state_from_jax.
+float32 from one state carried across with convert.state_from_jax. The
+same run with freq_est 1 is in tests/test_torch_em_freq.py (a file of its
+own, so that the two JAX compilations can run on two workers).
 
 Tolerances: n_iters equal; tot_lkl rtol 1e-5; indF / alpha atol 2e-3 (the
 two optimizers' endpoints agree to the shared PGTOL, not bit for bit:
@@ -44,7 +46,7 @@ def runs():
             j_em.EMOptions(numerics="pallas", freq_est=0, **LOOP))
     st_t = convert.state_from_jax(arrays, device="cpu")
     res_t = t_em.run_em(gl, dist.astype(np.float32), st_t,
-                        t_em.EMOptions(**LOOP), device="cpu")
+                        t_em.EMOptions(freq_est=0, **LOOP), device="cpu")
     return dict(gl=gl, dist=dist, arrays=arrays, jax=res_j, port=res_t,
                 st_t=st_t)
 
@@ -100,13 +102,13 @@ def test_run_em_invariants_and_memory(runs):
     # one more warm iteration from the carried memory runs
     out = t_em.em_iteration(
         torch.as_tensor(runs["gl"]), torch.as_tensor(runs["dist"]).float(),
-        rt.state, opt_memory=back, return_opt=True)
+        rt.state, freq_est=0, opt_memory=back, return_opt=True)
     assert torch.isfinite(out[0].ind_lkl).all()
     assert float(out[1].fwbw_maxdiff) < 1e-3
 
 
 @pytest.mark.parametrize("kw", [
-    dict(freq_est=1), dict(freq_est=2), dict(e_prob_calc=2),
+    dict(freq_est=2), dict(e_prob_calc=2),
     dict(numerics="log"), dict(numerics="linear"), dict(block_size="auto"),
     dict(gl_bf16=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))

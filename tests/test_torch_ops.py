@@ -12,10 +12,12 @@ import torch
 from ngsf_hmm_tpu.ops import emissions as j_em
 from ngsf_hmm_tpu.ops import hwe as j_hwe
 from ngsf_hmm_tpu.ops import logsum as j_ls
+from ngsf_hmm_tpu.ops import maf as j_maf
 from ngsf_hmm_tpu.ops import transitions as j_tr
 from ngsf_hmm_tpu_torch.ops import emissions as t_em
 from ngsf_hmm_tpu_torch.ops import hwe as t_hwe
 from ngsf_hmm_tpu_torch.ops import logsum as t_ls
+from ngsf_hmm_tpu_torch.ops import maf as t_maf
 from ngsf_hmm_tpu_torch.ops import transitions as t_tr
 
 # the suite runs several workers side by side: keep torch to one thread
@@ -109,3 +111,14 @@ def test_ops_float32(data):
     assert e32.dtype == torch.float32
     e64 = t_em.calc_emission(_t(gl), _t(maf)[:, None])
     np.testing.assert_allclose(e32.numpy(), e64.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [8, 31, 32, 95, 96, 1000])
+def test_macro_schedule_equals_jax(N):
+    """The est_maf macro schedules and their window lists, equal to the
+    JAX package's on both sides of each threshold."""
+    assert t_maf.macro_schedule(N) == j_maf.macro_schedule(N)
+    for K0, M in ((8, 16), (16, 8), (8, (12, 24, 57))):
+        assert t_maf.macro_rounds(K0, M) == j_maf.macro_rounds(K0, M)
+    assert (t_maf.MACRO_K0, t_maf.MACRO_MS) == (j_maf.MACRO_K0,
+                                                j_maf.MACRO_MS)

@@ -109,8 +109,16 @@ def test_readers_and_init_equal_jax_package(arrays, tmp_path):
         assert np.array_equal(x, y)
     assert np.array_equal(j_init_freq("r", S, rj), init_freq("r", S, rt))
     assert np.array_equal(j_init_freq("0.2", S, rj), init_freq("0.2", S, rt))
-    with pytest.raises(NotImplementedError):
-        init_freq("e", S, rt, gl=arrays["gl"])
+    # freq init "e": est_maf with F = 0 in log space at gl's dtype
+    # (float64 here), rtol 1e-10
+    fe = init_freq("e", S, rt, gl=arrays["gl"], device="cpu")
+    assert isinstance(fe, np.ndarray) and fe.dtype == np.float64
+    np.testing.assert_allclose(fe, j_init_freq("e", S, rj, gl=arrays["gl"]),
+                               rtol=1e-10)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_freq("e", S, rt, gl=arrays["gl"], freq_est=2, device="cpu")
+    with pytest.raises(ValueError, match="genotype likelihoods"):
+        init_freq("e", S, rt, device="cpu")
 
 
 def test_cuda_without_a_card_raises(arrays):
@@ -126,6 +134,8 @@ def test_cuda_without_a_card_raises(arrays):
 
 
 def test_cli_end_to_end_on_cpu(arrays, tmp_path):
+    """The CLI on the CPU with frequencies held fixed (--freq_est 0); the
+    runs that estimate them are in tests/test_torch_em_freq.py."""
     S, N = arrays["path"].shape
     geno = tmp_path / "in.geno"
     np.exp(arrays["gl"]).astype("<f8").tofile(geno)
@@ -138,8 +148,11 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
     ok = _run(base + ["--freq_est", "0", "--device", "cpu"], module=True)
     assert ok.returncode == 0, ok.stderr
     assert "Final logLkl" in ok.stdout
+    assert "Alelle frequencies not estimated" in ok.stdout
     assert (tmp_path / "run.geno").stat().st_size == S * N * 3 * 8
-    assert len((tmp_path / "run.indF").read_text().splitlines()) == 1 + N + S
+    lines = (tmp_path / "run.indF").read_text().splitlines()
+    assert len(lines) == 1 + N + S
+    assert np.ptp([float(x) for x in lines[1 + N:]]) == 0  # freq stayed 0.2
     assert len((tmp_path / "run.ibd").read_text().splitlines()) > 0
     # the default device is the card: without one the CLI errors out
     if not torch.cuda.is_available():
@@ -148,11 +161,11 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--freq_est", "1"], ["--freq_est", "0", "--mesh", "ind=2"],
+    ["--freq_est", "2"], ["--freq_est", "0", "--mesh", "ind=2"],
     ["--freq_est", "0", "--kernel", "scan"], ["--freq_est", "0", "--n_rep", "2"],
     ["--freq_est", "0", "--opt", "compat"],
     ["--freq_est", "0", "--stream_chunk", "10"],
-    ["--freq_est", "0", "--dtype", "float64"], ["--freq_est", "0", "--freq", "e"],
+    ["--freq_est", "0", "--dtype", "float64"], ["--e_prob", "2"],
 ], ids=lambda e: "".join(e[-2:]).lstrip("-"))
 def test_cli_refuses_unported_flags(extra, capsys):
     """Flags of later slices are parsed and refused before any input is
