@@ -11,22 +11,29 @@ needs one CUDA device and nvcc. It
      path's shape, and times both there; the est_maf kernels read the
      posterior slab the chain kernels produced there, and the exact one is
      also held at 20 individuals; at the main shape the est_maf kernels
-     are also timed in a second build with FMA contraction on,
-  4. drives three paths, each with the launch counts set to 0 just before
+     are also timed in a second build with FMA contraction on; the
+     emission-slab ("_v1") instantiations of the four stream kernels are
+     held at the ragged shape and at the restart path's shape,
+  4. drives four paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
-       main   1,000,000 sites x 100 individuals, float32, freq_est 1 (the
-              default: E-step, (F, alpha) M-step, freq M-step on the
-              macro-stepped est_maf kernels), with the writers,
-       fixed  200,003 x 100, freq_est 0 (frequencies held fixed), with the
-              writers,
-       exact  200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
-              than 32 individuals have no macro schedule),
-  5. runs the CLI once at a small size (--freq e, freq_est 1).
+       main     1,000,000 sites x 100 individuals, float32, freq_est 1 (the
+                default: E-step, (F, alpha) M-step, freq M-step on the
+                macro-stepped est_maf kernels), with the writers,
+       fixed    200,003 x 100, freq_est 0 (frequencies held fixed), with
+                the writers,
+       exact    200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
+                than 32 individuals have no macro schedule),
+       restart  200,003 x 100 with 20 replicates (the ngsF-HMM.sh protocol:
+                stack_restart_states -> run_em_restarts, replicates
+                flattened into 2,000 columns on the emission-slab kernels,
+                freq_est 1, best-replicate Viterbi, no writers),
+  5. runs the CLI twice at a small size (--freq e, freq_est 1; once more
+     with --n_rep 3).
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launches summed over the three paths, its error against the plain
-version and its times.
+its launches summed over the four paths and per path, its error against
+the plain version and its times.
 
 --rehearse runs the same control flow at a tiny size on the CPU through the
 plain versions (to find wrong shapes and paths without a card); it never
@@ -62,12 +69,17 @@ MAF_FREQ_ATOL = 2e-5
 MAF_FLIP_SHARE = 1e-3  # most sites that may stop at another pass
 
 # Float operations per (site, lane), counted from the CUDA sources
-# (emission prologue 25, transition 12, then the product / rescale step).
+# (emission prologue 25 on the gl slabs, none on the emission slabs;
+# transition 12; then the product / rescale step).
 FLOPS_CELL = {
     "block_transfer_grad": 37 + 112,
     "block_transfer": 37 + 21,
     "bw_sites": 37 + 14,
     "fw_post": 37 + 18,
+    "block_transfer_grad_v1": 12 + 112,
+    "block_transfer_v1": 12 + 21,
+    "bw_sites_v1": 12 + 14,
+    "fw_post_v1": 12 + 18,
     # est_maf (csrc/maf_common.cuh, maf_exact.cu): the planes of a cell,
     # one pass over it, one gradient evaluation, one exact pass, and one
     # step of the per-site window
@@ -106,10 +118,23 @@ KERNELS = {
         "kernel)"),
     "maf_exact": ("ngsf_hmm_tpu_torch/csrc/maf_exact.cu",
                   "ngsf_hmm_tpu/ops/maf_pallas.py:85"),
+    # the emission-slab instantiations of the four stream templates
+    "block_transfer_grad_v1": (
+        "ngsf_hmm_tpu_torch/csrc/block_transfer_grad.cu",
+        "ngsf_hmm_tpu/models/hmm_pallas.py:590"),
+    "bw_sites_v1": ("ngsf_hmm_tpu_torch/csrc/bw_sites.cu",
+                    "ngsf_hmm_tpu/models/hmm_pallas.py:530"),
+    "fw_post_v1": ("ngsf_hmm_tpu_torch/csrc/fw_post.cu",
+                   "ngsf_hmm_tpu/models/hmm_pallas.py:685"),
+    "block_transfer_v1": ("ngsf_hmm_tpu_torch/csrc/block_transfer.cu",
+                          "ngsf_hmm_tpu/models/hmm_pallas.py:385"),
 }
+STREAM_KERNELS = ("block_transfer_grad", "block_transfer", "bw_sites",
+                  "fw_post")
 CHAIN_KERNELS = ("block_transfer_grad", "bw_sites", "fw_post",
                  "block_transfer", "combine_blocks", "viterbi")
 SLAB_KERNELS = ("maf_state_grad", "maf_sums_grad", "maf_window")
+V1_KERNELS = tuple(k + "_v1" for k in STREAM_KERNELS)
 
 
 def log(msg):
@@ -380,6 +405,165 @@ def probe_fmad(torch, prep, p_slab, timer, label):
         f"{d:.3g}")
 
 
+def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
+    """The four stream kernels of one emission source (v1=False: the gl
+    slabs of models/hmm_kernels.py, sl = (g0, g2, fc, dc); v1=True: the
+    emission slabs of models/hmm_kernels_v1.py, sl = (e0, e1, dc)) and the
+    combine between them, each against its plain version on `dev`. Fails
+    the run on any disagreement; records every kernel (the combine only
+    for the gl source). Returns the posterior slab."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+
+    mod, sfx = (h1, "_v1") if v1 else (hk, "")
+    kern = {k: getattr(mod, f"_k_{k}{sfx}") for k in STREAM_KERNELS}
+    plain = {k: getattr(mod, f"_{k}{sfx}_plain") for k in STREAM_KERNELS}
+    bs, nb, N = sl[0].shape
+    cells = bs * nb * N
+    slab = cells * 4
+    record, finite = rec.record, rec.finite
+
+    def flops(k):
+        return cells * FLOPS_CELL[k + sfx]
+
+    def common_scale(got, want, off_g, off_w):
+        """Both products rescaled to the plain version's exponent: equal
+        values whose maxima straddle a power of two normalise apart."""
+        return got * torch.exp2(torch.round((off_g - off_w) / hk._LN2)), want
+
+    # ---- transfer + tangents
+    k1, ms = timer(lambda: kern["block_transfer_grad"](*sl, F_t, a_t))
+    p1, pms = timer(lambda: plain["block_transfer_grad"](*sl, F_t, a_t),
+                    reps=1, warm=0)
+    finite("block_transfer_grad" + sfx, k1, p1)
+    g, w = common_scale(k1[:12], p1[:12], k1[12], p1[12])
+    err = float((g[:4] - w[:4]).abs().max())
+    for lo in (4, 8):  # tangents, relative to each lane's largest entry
+        scale = w[lo:lo + 4].abs().amax(0).clamp_min(1.0)
+        err = max(err, float(((g[lo:lo + 4] - w[lo:lo + 4]).abs()
+                              / scale).max()))
+    if err > ATOL:
+        fail(f"block_transfer_grad{sfx} [{label}]: max diff {err} > {ATOL}")
+    record("block_transfer_grad" + sfx, err, ms, pms,
+           2 * slab + 13 * nb * N * 4, flops("block_transfer_grad"))
+    del p1
+
+    # ---- transfer, B = 1 (bit identity with the grad kernel) and B = 2
+    F1, a1 = F_t[None].contiguous(), a_t[None].contiguous()
+    k4, ms = timer(lambda: kern["block_transfer"](*sl, F1, a1))
+    p4, pms = timer(lambda: plain["block_transfer"](*sl, F1, a1),
+                    reps=1, warm=0)
+    finite("block_transfer" + sfx, k4, p4)
+    if dev.type == "cuda":
+        prim = torch.cat([k1[0:4], k1[12:13]])
+        if not torch.equal(prim, k4[:, 0]):
+            fail(f"[{label}] the grad kernel{sfx}'s primal rows are not "
+                 "bit-equal to the transfer kernel's output at B = 1")
+        log(f"[{label}] grad-kernel{sfx} primal rows torch.equal transfer "
+            "kernel (B = 1): True")
+    del k1
+    g, w = common_scale(k4[:4], p4[:4], k4[4], p4[4])
+    err = float((g - w).abs().max())
+    F2 = torch.stack([F_t, (F_t * 0.7)]).contiguous()
+    a2 = torch.stack([a_t, (a_t * 1.5)]).contiguous()
+    kb, pb = (kern["block_transfer"](*sl, F2, a2),
+              plain["block_transfer"](*sl, F2, a2))
+    g, w = common_scale(kb[:4], pb[:4], kb[4], pb[4])
+    err = max(err, float((g - w).abs().max()))
+    if not torch.equal(kb[:, 0], k4[:, 0]) and dev.type == "cuda":
+        fail(f"[{label}] block_transfer{sfx}: candidate 0 of B = 2 differs "
+             "from B = 1")
+    if err > ATOL:
+        fail(f"block_transfer{sfx} [{label}]: max diff {err} > {ATOL}")
+    record("block_transfer" + sfx, err, ms, pms, 2 * slab + 5 * nb * N * 4,
+           flops("block_transfer"))
+    del kb, pb, p4
+
+    # ---- cross-block combine
+    A_r = k4.permute(2, 0, 1, 3)
+    (st_k, en_k, ll_k), ms = timer(lambda: hk._combine_blocks(A_r, F1))
+    (st_p, en_p, ll_p), pms = timer(
+        lambda: hk._combine_blocks_plain(A_r, F1), reps=1, warm=0)
+    finite("combine_blocks", st_k, en_k, ll_k)
+    norm = lambda v: v / v.sum(1, keepdim=True)
+    err = max(float((norm(st_k) - norm(st_p)).abs().max()),
+              float((norm(en_k) - norm(en_p)).abs().max()))
+    ll_err = float(((ll_k - ll_p).abs() / ll_p.abs()).max())
+    fwbw = float((ll_k[0] - ll_k[1]).abs().max())
+    log(f"[{label}] combine_blocks: loglik rel diff {ll_err:.3g}, "
+        f"|ll_f - ll_b| max {fwbw:.3g}")
+    if err > ATOL or ll_err > LL_RTOL or fwbw > 1e-3:
+        fail(f"combine_blocks [{label}]: vectors {err}, logliks {ll_err}, "
+             f"fw/bw {fwbw}")
+    if not v1:
+        record("combine_blocks", err, ms, pms,
+               (5 + 4) * nb * N * 4 + 2 * N * 8, 2 * nb * N * 12)
+    del k4, A_r
+
+    # ---- backward ratio slab
+    ends = en_k[:, :, 0].transpose(0, 1).contiguous()
+    bw_k, ms = timer(lambda: kern["bw_sites"](*sl, F_t, a_t, ends))
+    bw_p, pms = timer(lambda: plain["bw_sites"](*sl, F_t, a_t, ends),
+                      reps=1, warm=0)
+    finite("bw_sites" + sfx, bw_k, bw_p)
+    err = float((bw_k - bw_p).abs().max())
+    if err > ATOL:
+        fail(f"bw_sites{sfx} [{label}]: max diff {err} > {ATOL}")
+    record("bw_sites" + sfx, err, ms, pms, 3 * slab + 2 * nb * N * 4,
+           flops("bw_sites"))
+    del bw_p
+
+    # ---- posterior slab
+    starts = st_k[:, :, 0].transpose(0, 1).contiguous()
+    po_k, ms = timer(lambda: kern["fw_post"](*sl, F_t, a_t, starts, bw_k))
+    po_p, pms = timer(lambda: plain["fw_post"](*sl, F_t, a_t, starts, bw_k),
+                      reps=1, warm=0)
+    finite("fw_post" + sfx, po_k, po_p)
+    err = float((po_k - po_p).abs().max())
+    if err > ATOL:
+        fail(f"fw_post{sfx} [{label}]: max diff {err} > {ATOL}")
+    if not bool(((po_k >= 0) & (po_k <= 1)).all()):
+        fail(f"fw_post{sfx} [{label}]: posterior outside [0, 1]")
+    record("fw_post" + sfx, err, ms, pms, 4 * slab + 2 * nb * N * 4,
+           flops("fw_post"))
+    n_one = int((po_k == 1.0).sum())
+    log(f"[{label}] posterior slab{sfx}: {n_one} cells exactly 1.0 "
+        "(the het floor's case)")
+    return po_k
+
+
+def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results):
+    """The emission-slab kernels (models/hmm_kernels_v1.py) against their
+    plain versions on `dev`: e_prob [S, L, 2] log emissions, F / alpha [L]
+    (L columns: individuals, or replicate x individual). Also holds the
+    public posteriors_v1 / loglik_value_and_grad_v1 to the pieces."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+
+    f32 = torch.float32
+    S, L = e_prob.shape[0], e_prob.shape[1]
+    prep = h1.prepare_inputs(e_prob, torch.as_tensor(dist).to(dev, f32))
+    F_t = torch.as_tensor(F).to(dev, f32).contiguous()
+    a_t = torch.as_tensor(alpha).to(dev, f32).contiguous()
+    bs, nb = prep["bs"], prep["nb"]
+    log(f"[{label}] S={S} columns={L} bs={bs} nb={nb} lanes={nb * L} "
+        f"pad sites={nb * bs - S} breaks={int(np.isinf(dist).sum())}")
+    rec = Recorder(torch, label, results)
+    po_k = check_streams(torch, dev, rec, Timer(torch, dev), label,
+                         (prep["e0"], prep["e1"], prep["dc"]), F_t, a_t,
+                         v1=True)
+    p, _, _, slab = h1.posteriors_v1(F_t, a_t, prep, return_slab=True)
+    if not torch.equal(slab, po_k):
+        fail(f"[{label}] posteriors_v1 differs from its kernels")
+    ll, gF, ga = h1.loglik_value_and_grad_v1(F_t, a_t, prep)
+    rec.finite("loglik_value_and_grad_v1", ll, gF, ga)
+    d = float(((ll - h1.forward_loglik_v1(F_t[None], a_t[None], prep)[0])
+               .abs() / ll.abs()).max())
+    log(f"[{label}] loglik_value_and_grad_v1 against forward_loglik_v1: "
+        f"rel diff {d:.3g}")
+    if d > LL_RTOL:
+        fail(f"[{label}] the v1 value and the v1 forward loglik differ by {d}")
+
+
 def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                   reference=False, fmad_probe=False):
     """Every kernel's wrapper against its plain version on `dev` at this
@@ -404,110 +588,13 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     log(f"[{label}] S={S} N={N} bs={bs} nb={nb} lanes={nb * N} "
         f"pad sites={nb * bs - S} breaks={int(np.isinf(dist).sum())}")
     sl = (prep["g0"], prep["g2"], fc, prep["dc"])
-    cells = bs * nb * N
-    slab = cells * 4
     rec = Recorder(torch, label, results)
     record, finite = rec.record, rec.finite
 
-    def common_scale(got, want, off_g, off_w):
-        """Both products rescaled to the plain version's exponent: equal
-        values whose maxima straddle a power of two normalise apart."""
-        return got * torch.exp2(torch.round((off_g - off_w) / hk._LN2)), want
-
-    # ---- kernel 1: transfer + tangents
-    k1, ms = timer(lambda: hk._k_block_transfer_grad(*sl, F_t, a_t))
-    p1, pms = timer(lambda: hk._block_transfer_grad_plain(*sl, F_t, a_t),
-                    reps=1, warm=0)
-    finite("block_transfer_grad", k1, p1)
-    g, w = common_scale(k1[:12], p1[:12], k1[12], p1[12])
-    err = float((g[:4] - w[:4]).abs().max())
-    for lo in (4, 8):  # tangents, relative to each lane's largest entry
-        scale = w[lo:lo + 4].abs().amax(0).clamp_min(1.0)
-        err = max(err, float(((g[lo:lo + 4] - w[lo:lo + 4]).abs()
-                              / scale).max()))
-    if err > ATOL:
-        fail(f"block_transfer_grad [{label}]: max diff {err} > {ATOL}")
-    record("block_transfer_grad", err, ms, pms, 2 * slab + 13 * nb * N * 4,
-           cells * FLOPS_CELL["block_transfer_grad"])
-
-    # ---- kernel 4: transfer, B = 1 (bit identity with kernel 1) and B = 2
-    F1, a1 = F_t[None].contiguous(), a_t[None].contiguous()
-    k4, ms = timer(lambda: hk._k_block_transfer(*sl, F1, a1))
-    p4, pms = timer(lambda: hk._block_transfer_plain(*sl, F1, a1),
-                    reps=1, warm=0)
-    finite("block_transfer", k4, p4)
-    if dev.type == "cuda":
-        prim = torch.cat([k1[0:4], k1[12:13]])
-        if not torch.equal(prim, k4[:, 0]):
-            fail(f"[{label}] the grad kernel's primal rows are not bit-equal "
-                 "to the transfer kernel's output at B = 1")
-        log(f"[{label}] grad-kernel primal rows torch.equal transfer kernel "
-            "(B = 1): True")
-    g, w = common_scale(k4[:4], p4[:4], k4[4], p4[4])
-    err = float((g - w).abs().max())
-    F2 = torch.stack([F_t, (F_t * 0.7)]).contiguous()
-    a2 = torch.stack([a_t, (a_t * 1.5)]).contiguous()
-    kb, pb = (hk._k_block_transfer(*sl, F2, a2),
-              hk._block_transfer_plain(*sl, F2, a2))
-    g, w = common_scale(kb[:4], pb[:4], kb[4], pb[4])
-    err = max(err, float((g - w).abs().max()))
-    if not torch.equal(kb[:, 0], k4[:, 0]) and dev.type == "cuda":
-        fail(f"[{label}] block_transfer: candidate 0 of B = 2 differs from "
-             "B = 1")
-    if err > ATOL:
-        fail(f"block_transfer [{label}]: max diff {err} > {ATOL}")
-    record("block_transfer", err, ms, pms, 2 * slab + 5 * nb * N * 4,
-           cells * FLOPS_CELL["block_transfer"])
-
-    # ---- cross-block combine
-    A_r = k4.permute(2, 0, 1, 3)
-    (st_k, en_k, ll_k), ms = timer(lambda: hk._combine_blocks(A_r, F1))
-    (st_p, en_p, ll_p), pms = timer(
-        lambda: hk._combine_blocks_plain(A_r, F1), reps=1, warm=0)
-    finite("combine_blocks", st_k, en_k, ll_k)
-    norm = lambda v: v / v.sum(1, keepdim=True)
-    err = max(float((norm(st_k) - norm(st_p)).abs().max()),
-              float((norm(en_k) - norm(en_p)).abs().max()))
-    ll_err = float(((ll_k - ll_p).abs() / ll_p.abs()).max())
-    fwbw = float((ll_k[0] - ll_k[1]).abs().max())
-    log(f"[{label}] combine_blocks: loglik rel diff {ll_err:.3g}, "
-        f"|ll_f - ll_b| max {fwbw:.3g}")
-    if err > ATOL or ll_err > LL_RTOL or fwbw > 1e-3:
-        fail(f"combine_blocks [{label}]: vectors {err}, logliks {ll_err}, "
-             f"fw/bw {fwbw}")
-    record("combine_blocks", err, ms, pms, (5 + 4) * nb * N * 4 + 2 * N * 8,
-           2 * nb * N * 12)
-
-    # ---- kernel 2: backward ratio slab
-    ends = en_k[:, :, 0].transpose(0, 1).contiguous()
-    bw_k, ms = timer(lambda: hk._k_bw_sites(*sl, F_t, a_t, ends))
-    bw_p, pms = timer(lambda: hk._bw_sites_plain(*sl, F_t, a_t, ends),
-                      reps=1, warm=0)
-    finite("bw_sites", bw_k, bw_p)
-    err = float((bw_k - bw_p).abs().max())
-    if err > ATOL:
-        fail(f"bw_sites [{label}]: max diff {err} > {ATOL}")
-    record("bw_sites", err, ms, pms, 3 * slab + 2 * nb * N * 4,
-           cells * FLOPS_CELL["bw_sites"])
-
-    # ---- kernel 3: posterior slab
-    starts = st_k[:, :, 0].transpose(0, 1).contiguous()
-    po_k, ms = timer(lambda: hk._k_fw_post(*sl, F_t, a_t, starts, bw_k))
-    po_p, pms = timer(lambda: hk._fw_post_plain(*sl, F_t, a_t, starts, bw_k),
-                      reps=1, warm=0)
-    finite("fw_post", po_k, po_p)
-    err = float((po_k - po_p).abs().max())
-    if err > ATOL:
-        fail(f"fw_post [{label}]: max diff {err} > {ATOL}")
+    po_k = check_streams(torch, dev, rec, timer, label, sl, F_t, a_t,
+                         v1=False)
     p_sites = hk._unpack_sites2(po_k, prep)
-    if not bool(((p_sites >= 0) & (p_sites <= 1)).all()):
-        fail(f"fw_post [{label}]: posterior outside [0, 1]")
-    record("fw_post", err, ms, pms, 4 * slab + 2 * nb * N * 4,
-           cells * FLOPS_CELL["fw_post"])
-    n_one = int((po_k == 1.0).sum())
-    log(f"[{label}] posterior slab: {n_one} cells exactly 1.0 "
-        "(the het floor's case)")
-    del bw_k, bw_p, po_p, k1, p1, k4, p4, kb, pb, sl
+    del sl
 
     # ---- the est_maf kernels, on the slabs and the posterior from above
     ref = dict(p_sites=p_sites, gl_lin=torch.exp(gl_t)) if reference else {}
@@ -746,9 +833,132 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     return counts
 
 
-def run_cli(dev, seed):
+def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
+    """stack_restart_states -> run_em_restarts (R lockstep replicates
+    flattened into the columns, freq_est 1, min_iters 3, max_iters 4,
+    best-replicate Viterbi; no writers) with the launch counts set to 0
+    just before and read just after; fails unless every kernel of the
+    route was launched, no plain version was called and what came out is
+    sound. Returns the launch counts."""
+    from ngsf_hmm_tpu_torch.models.em import EMOptions, rebuild_eprob
+    from ngsf_hmm_tpu_torch.models.restart import (run_em_restarts,
+                                                   stack_restart_states)
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    label = "restart"
+    S, N = gl.shape[0], gl.shape[1]
+    opts = EMOptions(freq_est=1, min_iters=3, max_iters=4, verbose=0)
+    iters = []
+
+    def trace(event, **kw):
+        if event == "iter_done":
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            iters.append((kw["dt"], kw["tot_lkl"].copy(), kw["active"].copy(),
+                          cuda_lib.LAUNCHES["block_transfer_grad_v1"]))
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    # the ngsF-HMM.sh protocol: random inits, replicate r from seed + r
+    box = [stack_restart_states(gl, R, seed, device=dev)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    with MafTimer(torch, dev) as maf_timer:
+        # handed over without a reference kept here: run_em_restarts holds
+        # only its flattened copy
+        res = run_em_restarts(gl, dist, box.pop(), opts, trace=trace,
+                              device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    counts = dict(cuda_lib.LAUNCHES)
+    plain = dict(cuda_lib.PLAIN_CALLS)
+
+    # ---- what came out
+    need = V1_KERNELS + ("combine_blocks", "viterbi") + SLAB_KERNELS
+    if dev.type == "cuda":
+        if plain:
+            fail(f"[{label}] the path called plain versions: {plain}")
+        missing = [k for k in need if counts.get(k, 0) < 1]
+        if missing:
+            fail(f"[{label}] never launched: {missing} (counts {counts})")
+        fused = [k for k in CHAIN_KERNELS[:4] if counts.get(k, 0)]
+        if fused:
+            fail(f"[{label}] the flattened route launched gl-layout kernels "
+                 f"{fused}")
+    elif not plain:
+        fail("rehearsal: no plain version was called")
+    n_it = len(iters)
+    if not (opts.min_iters <= n_it <= opts.max_iters):
+        fail(f"[{label}] expected 3 or 4 lockstep iterations, ran {n_it}")
+    hist = np.array([t for _, t, _, _ in iters])  # [iterations, R]
+    if hist.shape != (n_it, R) or not np.all(np.isfinite(hist)):
+        fail(f"[{label}] non-finite or misshapen replicate totals: {hist}")
+    # freq estimated: each replicate ends above its start, and no step
+    # loses more than 1e-4 of |ll| (run_path's gate, per replicate)
+    slack = 1e-4 * np.abs(hist[0])
+    if not np.all(hist[-1] > hist[0]) or np.any(
+            np.diff(hist, axis=0) < -slack):
+        fail(f"[{label}] a replicate's log-likelihood went wrong: {hist}")
+    if res.best_rep != int(np.argmax(res.rep_lkl)) or not np.array_equal(
+            res.rep_lkl, hist[-1]):
+        fail(f"[{label}] best replicate {res.best_rep} is not the argmax "
+             f"of {res.rep_lkl}")
+    best, freq = res.best, res.rep_freq
+    if freq.shape != (R, S):
+        fail(f"[{label}] per-replicate freq of the wrong shape")
+    if not np.all(np.isfinite(freq)) or not np.all((freq >= 0) & (freq <= 1)):
+        fail(f"[{label}] freq not finite in [0, 1]")
+    st = best.state
+    p_ibd = st.p_ibd.cpu().numpy()
+    if p_ibd.shape != (S, N) or not np.all((p_ibd >= 0) & (p_ibd <= 1)):
+        fail(f"[{label}] best p_ibd not in [0, 1] or of the wrong shape")
+    if best.path.shape != (S, N) or not np.isin(best.path, (0, 1)).all():
+        fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
+    if not np.array_equal(freq[res.best_rep], st.freq.cpu().numpy()):
+        fail(f"[{label}] the best state's freq is not its replicate's")
+    want = rebuild_eprob(torch.as_tensor(gl[:1000]).to(dev), st.freq[:1000])
+    if not torch.equal(st.e_prob[:1000], want):
+        fail(f"[{label}] the best replicate's e_prob is not its freq's")
+    f_err = np.abs(freq - freq_true[None]).mean(1)
+    corr = [float(np.corrcoef(f, freq_true)[0, 1]) for f in freq]
+    maf_ms = maf_timer.ms()
+    if len(maf_ms) != R * n_it:
+        fail(f"[{label}] {len(maf_ms)} est_maf calls in {n_it} iterations "
+             f"of {R} replicates")
+
+    log(f"[{label}] S={S} N={N} R={R} ({R * N} columns) float32 freq_est 1: "
+        f"init {t_init:.2f} s, init + {n_it} iterations + Viterbi "
+        f"{t_all:.2f} s")
+    probes = np.diff([0] + [c for _, _, _, c in iters])
+    for i, ((dt, tot, act, _), n_str) in enumerate(zip(iters, probes), 1):
+        m = maf_ms[(i - 1) * R:i * R]
+        log(f"[{label}] iteration {i}: {dt:.3f} s, best tot_lkl "
+            f"{tot.max():.3f} (replicate {int(np.argmax(tot)) + 1}), active "
+            f"{int(act.sum())}/{R}, transfer+tangent streams {n_str} "
+            f"(L-BFGS probes), L-BFGS outer iterations "
+            f"{best.opt_iters[i - 1]}, freq M-step {sum(m):.3f} ms "
+            f"({R} est_maf_slab calls, {min(m):.3f}-{max(m):.3f} ms each)")
+    for r in range(R):
+        log(f"[{label}] replicate {r + 1}: logLkl {res.rep_lkl[r]:.3f} "
+            f"({res.rep_iters[r]} iters), mean |freq - simulated| {f_err[r]:.4f}, correlation {corr[r]:.3f}"
+            + ("  <== best" if r == res.best_rep else ""))
+    log(f"[{label}] best replicate {res.best_rep + 1}: Viterbi IBD share "
+        f"{best.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
+    if dev.type == "cuda":
+        log(f"[{label}] peak torch.cuda.max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{label}] launches {counts}")
+    return counts
+
+
+def run_cli(dev, seed, n_rep=1):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
-    with numpy; exit code and outputs checked."""
+    with numpy (n_rep > 1: that many lockstep restarts, the best
+    replicate's files); exit code and outputs checked."""
     S, N = 5000, 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -768,7 +978,7 @@ def run_cli(dev, seed):
                "--pos", pos, "--n_ind", str(N), "--n_sites", str(S),
                "--freq_est", "1", "--freq", "e", "--indF", "0.1-0.05",
                "--min_iters", "2", "--max_iters", "3", "--out", out,
-               "--device", dev.type]
+               "--device", dev.type, "--n_rep", str(n_rep)]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                            cwd=os.path.dirname(os.path.abspath(__file__)))
         if r.returncode != 0:
@@ -784,7 +994,17 @@ def run_cli(dev, seed):
         if not os.path.getsize(out + ".ibd"):
             fail("CLI .ibd is empty")
         final = [l for l in r.stdout.splitlines() if "Final logLkl" in l][0]
-        log(f"[cli] exit 0 at S={S} N={N}: {final.strip()}")
+        if n_rep > 1:
+            reps = [l for l in r.stdout.splitlines()
+                    if l.startswith("Replicate ")]
+            best = [l for l in reps if "<== best" in l]
+            head = float(open(out + ".indF").readline())
+            if len(reps) != n_rep or len(best) != 1 or abs(
+                    head - max(float(l.split()[3]) for l in reps)) > 1e-4:
+                fail(f"CLI --n_rep {n_rep}: replicate lines {reps}, .indF "
+                     f"header {head}")
+            final += f"; {best[0].strip()}"
+        log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}: {final.strip()}")
 
 
 def main():
@@ -841,6 +1061,7 @@ def main():
     t0 = time.perf_counter()
     S_c, N = args.check_sites, args.ind
     N_x = 7 if args.rehearse else 20  # the exact est_maf route: N < 32
+    R = 3 if args.rehearse else 20  # restart path: ngsF-HMM.sh's N_REP
     gl_c, dist_c, freq_c, F0_c, a0_c = simulate(S_c, N, args.seed + 7,
                                                 n_chrom=1)
     step = max(2, min(100_000, S_c // 2))
@@ -876,6 +1097,27 @@ def main():
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
                   fmad_probe=True)
     log(f"[main shape] kernels checked in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the emission-slab kernels: at the ragged check shape (one
+    # replicate, chromosome breaks) and at the restart path's shape (R
+    # replicates flattened into R * N columns, emissions of R random
+    # initial frequency vectors)
+    t0 = time.perf_counter()
+    from ngsf_hmm_tpu_torch.models.restart import (flatten_states,
+                                                   stack_restart_states)
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+    e_c = calc_emission(torch.as_tensor(gl_c).to(dev, f32),
+                        torch.as_tensor(freq_c).to(dev, f32)[:, None])
+    check_v1_kernels(torch, dev, e_c, dist_c, F0_c, a0_c, "check v1",
+                     results)
+    del e_c
+    flat = flatten_states(stack_restart_states(gl_c, R,
+                                               args.seed + 5, device=dev))
+    check_v1_kernels(torch, dev, flat.e_prob, dist_c, flat.indF.cpu(),
+                     flat.alpha.cpu(), f"restart shape R={R}",
+                     results)
+    del flat
+    log(f"[v1] kernels checked in {time.perf_counter() - t0:.1f} s")
     # maf_exact runs on the exact path only: its line keeps the times at
     # that path's shape and the largest error over all three shapes
     exact_results["maf_exact"]["max_abs_err"] = max(
@@ -894,15 +1136,19 @@ def main():
     paths["exact"] = run_path(torch, dev, "exact", gl_x, dist_x, freq_x,
                               F0_x, a0_x, 1, CHAIN_KERNELS + ("maf_exact",),
                               writers=False)
-    del gl_c, gl_x
+    del gl_x
+    paths["restart"] = run_restart_path(torch, dev, gl_c, dist_c, freq_c,
+                                        R, args.seed + 5)
+    del gl_c
     counts = {name: sum(c.get(name, 0) for c in paths.values())
               for name in KERNELS}
     log(f"[paths] launches per path: {json.dumps(paths)}")
     if dev.type == "cuda" and min(counts.values()) < 1:
         fail(f"a kernel was launched on no path: {counts}")
 
-    # ---- phase 5: the CLI
+    # ---- phase 5: the CLI, one run and three lockstep restarts
     run_cli(dev, args.seed)
+    run_cli(dev, args.seed, n_rep=3)
 
     if args.rehearse:
         log("rehearsal on the CPU finished; no result is printed for it")
@@ -917,6 +1163,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "bytes": r["bytes"],
+            "launches_per_path": {p: int(c.get(name, 0))
+                                  for p, c in paths.items()},
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

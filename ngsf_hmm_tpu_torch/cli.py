@@ -5,14 +5,15 @@ parse_args.cpp:43-68), with getopt_long_only semantics: options work with
 one or two leading dashes and unambiguous prefixes, values via "--opt v"
 or "--opt=v". Verbose levels 1-3 reproduce the reference's progress lines.
 
-This package carries one tier: the fused float32 chain kernels on a
-single device, with the allele frequencies estimated every iteration
+This package carries one tier: the float32 chain kernels on a single
+device, with the allele frequencies estimated every iteration
 (--freq_est 1, the default as in the reference) or held fixed
-(--freq_est 0). It is the default for --kernel / --dtype here; the flags
-of tiers still to be ported (--freq_est 2, --e_prob 2, --mesh,
---stream_chunk, --checkpoint, --n_rep > 1, --opt compat, other --kernel /
---dtype values, --gl_bf16 1, --profile) are parsed and refused with an
-error.
+(--freq_est 0), for one run or for --n_rep R lockstep restarts (the
+ngsF-HMM.sh protocol; the best replicate's files are written). It is the
+default for --kernel / --dtype here; the flags of tiers still to be
+ported (--freq_est 2, --e_prob 2, --mesh, --stream_chunk, --checkpoint,
+--opt compat, other --kernel / --dtype values, --gl_bf16 1, --profile)
+are parsed and refused with an error.
 
 Example:
     python -m ngsf_hmm_tpu_torch --geno data.glf.gz --loglkl --n_ind 20 \
@@ -58,12 +59,12 @@ _OPTIONS = [
     ("dtype", True, None),  # float32 (the only tier ported so far)
     ("device", True, None),  # cuda (default) | cpu
     ("kernel", True, None),  # pallas = the fused kernel tier (only one ported)
+    ("n_rep", True, None),  # multi-restart replicates (ngsF-HMM.sh N_REP)
     # The flags below belong to tiers this package does not carry yet;
     # they are parsed (same names as the JAX package's CLI) and refused
     # in main() unless left at their defaults.
     ("opt", True, None),  # speed (default) | compat
     ("gl_bf16", True, None),  # 0 | 1 | auto
-    ("n_rep", True, None),  # multi-restart replicates
     ("checkpoint", True, None),
     ("checkpoint_every", True, None),
     ("resume", False, None),
@@ -105,6 +106,10 @@ def _atof(v):
 
     m = re.match(r"\s*([-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?)", v or "")
     return float(m.group(1)) if m else 0.0
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
 
 
 def _apply_opt(pars, opt, val):
@@ -322,8 +327,8 @@ def _refuse_unported(p):
         error("main", "--opt compat is not ported yet")
     if p["gl_bf16"] not in ("0", "auto"):
         error("main", "--gl_bf16 1 is not ported yet")
-    if p["n_rep"] != 1:
-        error("main", "--n_rep > 1 (multi-restart) is not ported yet")
+    if p["n_rep"] < 1:
+        error("main", "invalid number of replicates (--n_rep)!")
     for flag in ("checkpoint", "mesh", "coordinator", "profile"):
         if p[flag] is not None:
             error("main", f"--{flag} is not ported yet")
@@ -360,6 +365,8 @@ def main(argv=None):
     from .io.init import init_freq, init_indF_alpha
     from .io.writers import write_geno, write_ibd, write_indF
     from .models.em import EMOptions, _device, init_state, run_em
+    from .models.restart import (run_em_restarts, stack_restart_states,
+                                 take_replicate)
     from .ops.hwe import call_geno as call_geno_op
     from .ops.hwe import post_prob
     from .utils.signals import catch_sig
@@ -438,15 +445,29 @@ def main(argv=None):
             print(f'==> Reading initial frequency values from file "{fspec}".')
         else:
             print(f"==> Setting initial frequency values to: {fspec}")
+    # ngsF-HMM.sh multi-restart protocol: replicate r resolves its random
+    # inits with GslTaus(seed + r), so the single-run init is not built;
+    # replicate 0 draws what it would have drawn. The stacked states sit
+    # in a box that run_em_restarts empties, so that only its flattened
+    # copy stays alive.
+    state, restart_box = None, []
     try:
-        freq0 = init_freq(fspec, p["n_sites"], rng, gl=gl_t,
-                          freq_est=p["freq_est"], device=dev)
+        if p["n_rep"] > 1:
+            restart_box.append(stack_restart_states(
+                gl_t, p["n_rep"], p["seed"], indF_spec=spec,
+                freq_spec=fspec, freq_est=p["freq_est"],
+                e_prob_calc=p["e_prob"], device=dev, dtype=dtype))
+            freq0 = _np(restart_box[0].freq[0])
+        else:
+            freq0 = init_freq(fspec, p["n_sites"], rng, gl=gl_t,
+                              freq_est=p["freq_est"], device=dev)
     except ValueError as e:
         error("init_output", str(e))
     if p["verbose"] >= 1:
         print("==> Calculating initial emission probabilities")
-    state = init_state(gl_t, freq0, indF0, alpha0, e_prob_calc=p["e_prob"],
-                       device=dev, dtype=dtype)
+    if p["n_rep"] == 1:
+        state = init_state(gl_t, freq0, indF0, alpha0,
+                           e_prob_calc=p["e_prob"], device=dev, dtype=dtype)
 
     # ---- EM (EM.cpp:27-135)
     opts = EMOptions(
@@ -466,9 +487,6 @@ def main(argv=None):
         for i in range(p["n_ind"]):
             print(f"\t{indF0[i]:.10f}\t{alpha0[i]:.6f}")
         print("".join(f"\t{f:.6f}" for f in freq0))
-
-    def _np(t):
-        return t.detach().cpu().numpy()
 
     def write_outputs(st, tot, path_states):
         S, N = p["n_sites"], p["n_ind"]
@@ -546,11 +564,57 @@ def main(argv=None):
                     )
             sys.stdout.flush()
 
+    def multi_trace(event, **kw):
+        # lockstep analog of the single-run trace: one iteration advances
+        # every replicate, so the per-iteration line reports the current
+        # best replicate (verbose >= 3 adds the per-replicate table)
+        v = p["verbose"]
+        if v < 1:
+            return
+        if event == "iter_start":
+            trace(event, **kw)
+            return
+        tots = np.asarray(kw["tot_lkl"], np.float64)
+        eps = np.asarray(kw["max_eps"], np.float64)
+        best = int(np.argmax(tots))
+        print(f"\tLogLkl (best replicate {best + 1}): {tots[best]:.15f}"
+              f"\t max lkl epsilon: {eps[best]:.15f}"
+              f"\ttime: {kw['dt']:.0f} (s)")
+        if v >= 3:
+            active = kw["active"]
+            for r in range(len(tots)):
+                tag = " (best)" if r == best else ""
+                if not active[r]:
+                    tag += " [converged]"
+                print(f"\tReplicate {r + 1}: {tots[r]:.15f}\t "
+                      f"lkl epsilon: {eps[r]:.15f}{tag}")
+        sys.stdout.flush()
+
+    def multi_log_cb(n_iter, flat, tots):
+        # --log N with replicates dumps the CURRENT BEST replicate's state
+        # (the single-run semantics, EM.cpp:59-63, applied to the leader)
+        if p["log"] and n_iter > 0 and (n_iter == 1 or n_iter % p["log"] == 0):
+            best = int(np.argmax(tots))
+            if p["verbose"] >= 1:
+                print("==> Printing current iteration parameters "
+                      f"(best replicate {best + 1})")
+            write_outputs(take_replicate(flat, best), float(tots[best]), None)
+
     try:
-        result = run_em(gl_t, dist_t, state, opts, log_callback=log_cb,
-                        trace=trace, device=dev)
+        if p["n_rep"] > 1:
+            rres = run_em_restarts(
+                gl_t, dist_t, restart_box.pop(), opts,
+                log_callback=multi_log_cb, trace=multi_trace, device=dev)
+            result = rres.best
+        else:
+            result = run_em(gl_t, dist_t, state, opts, log_callback=log_cb,
+                            trace=trace, device=dev)
     except (RuntimeError, ValueError, NotImplementedError) as e:
         error("EM", str(e))
+    if p["n_rep"] > 1 and p["verbose"] >= 1:
+        for r, (lk, it) in enumerate(zip(rres.rep_lkl, rres.rep_iters)):
+            tag = "  <== best" if r == rres.best_rep else ""
+            print(f"Replicate {r + 1}: logLkl {lk:.6f} ({it} iters){tag}")
 
     if not result.converged:
         print(

@@ -2,7 +2,10 @@
 
 Both packages keep the same fields in the same layouts, so a state moves
 between them as a dict of numpy arrays. The tests start both engines from
-one state through these functions.
+one state through these functions. The same functions carry the stacked
+states of the multi-restart protocol (every field with a leading [R]
+axis, as both packages' stack_restart_states build them) and the
+flattened replicates' L-BFGS memory ([m, R*N, 2], n_cols = R*N).
 """
 
 import numpy as np
@@ -15,7 +18,8 @@ STATE_FIELDS = ("freq", "indF", "alpha", "e_prob", "p_ibd", "ind_lkl")
 
 def state_from_jax(arrays, device="cuda", dtype=torch.float32) -> EMState:
     """dict of numpy arrays (freq [S], indF [N], alpha [N], e_prob
-    [S, N, 2], p_ibd [S, N], ind_lkl [N]) -> EMState on `device`."""
+    [S, N, 2], p_ibd [S, N], ind_lkl [N]; or each with a leading [R]
+    replicate axis) -> EMState on `device`."""
     dev = _device(device)
     return EMState(*(
         torch.as_tensor(np.array(arrays[k])).to(device=dev, dtype=dtype)

@@ -1,14 +1,18 @@
 // Kernel: per-block transfer products for B candidate parameter sets.
-// Replaces ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer.
-// Bound by bytes: it reads the two gl slabs once per candidate and writes
+// One template over the emission source (hmm_common.cuh), two exports:
+//   ngsf_block_transfer     (GlSource) replaces
+//                           ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer
+//   ngsf_block_transfer_v1  (EmSource) replaces
+//                           ngsf_hmm_tpu/models/hmm_pallas.py:_k_block_transfer
+// Bound by bytes: it reads the two slabs once per candidate and writes
 // five floats per lane; ~30 float operations per cell.
 #include "hmm_common.cuh"
 
-__global__ void k_block_transfer(
-    const float* __restrict__ g0, const float* __restrict__ g2,
-    const float* __restrict__ fc, const float* __restrict__ dc,
-    const float* __restrict__ Fp, const float* __restrict__ ap,
-    float* __restrict__ out, int bs, int nb, int N, int B) {
+template <class Src>
+__global__ void k_block_transfer(Src src, const float* __restrict__ Fp,
+                                 const float* __restrict__ ap,
+                                 float* __restrict__ out, int bs, int nb,
+                                 int N, int B) {
     const long long lanes = (long long)nb * N;
     const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= lanes) return;
@@ -23,10 +27,10 @@ __global__ void k_block_transfer(
     for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
         float a0[NGSF_UNROLL], a2[NGSF_UNROLL], ff[NGSF_UNROLL],
             dd[NGSF_UNROLL];
-        chunk_load(g0, g2, fc, dc, r0, bs, nb, j, lane, lanes, a0, a2, ff, dd);
+        chunk_load(src, r0, bs, nb, j, lane, lanes, a0, a2, ff, dd);
 #pragma unroll
         for (int u = 0; u < NGSF_UNROLL; ++u) {
-            const SiteK k = site_load(a0[u], a2[u], ff[u], dd[u], a);
+            const SiteK k = src.site(a0[u], a2[u], ff[u], dd[u], a);
             float m00, m01, m10, m11;
             site_matrix(k, F, m00, m01, m10, m11);
             const float n00 = c00 * m00 + c01 * m10;
@@ -51,15 +55,30 @@ __global__ void k_block_transfer(
     o[4 * plane] = (float)ex * NGSF_LN2;
 }
 
+template <class Src>
+static int launch(Src src, const float* F, const float* alpha, float* out,
+                  int bs, int nb, int N, int B, void* stream) {
+    const int threads = 128;
+    const long long lanes = (long long)nb * N;
+    dim3 grid((unsigned)((lanes + threads - 1) / threads), (unsigned)B);
+    k_block_transfer<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        src, F, alpha, out, bs, nb, N, B);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ngsf_block_transfer(const float* g0, const float* g2,
                                    const float* fc, const float* dc,
                                    const float* F, const float* alpha,
                                    float* out, int bs, int nb, int N, int B,
                                    void* stream) {
-    const int threads = 128;
-    const long long lanes = (long long)nb * N;
-    dim3 grid((unsigned)((lanes + threads - 1) / threads), (unsigned)B);
-    k_block_transfer<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        g0, g2, fc, dc, F, alpha, out, bs, nb, N, B);
-    return (int)cudaGetLastError();
+    return launch(GlSource{g0, g2, fc, dc}, F, alpha, out, bs, nb, N, B,
+                  stream);
+}
+
+extern "C" int ngsf_block_transfer_v1(const float* e0, const float* e1,
+                                      const float* dc, const float* F,
+                                      const float* alpha, float* out, int bs,
+                                      int nb, int L, int B, void* stream) {
+    return launch(EmSource{e0, e1, nullptr, dc}, F, alpha, out, bs, nb, L, B,
+                  stream);
 }

@@ -1,16 +1,20 @@
 // Kernel: per-block transfer products with forward-mode (F, alpha)
 // tangents sharing the primal's power-of-two rescale.
-// Replaces ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer_grad.
-// Bound by bytes on paper (two gl slabs read once, 13 floats per lane
+// One template over the emission source (hmm_common.cuh), two exports:
+//   ngsf_block_transfer_grad     (GlSource) replaces
+//                                ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer_grad
+//   ngsf_block_transfer_grad_v1  (EmSource) replaces
+//                                ngsf_hmm_tpu/models/hmm_pallas.py:_k_block_transfer_grad
+// Bound by bytes on paper (two slabs read once, 13 floats per lane
 // written), but with ~110 float operations per cell and no FMA
 // contraction it sits near the float32 rate as well.
 #include "hmm_common.cuh"
 
-__global__ void k_block_transfer_grad(
-    const float* __restrict__ g0, const float* __restrict__ g2,
-    const float* __restrict__ fc, const float* __restrict__ dc,
-    const float* __restrict__ Fp, const float* __restrict__ ap,
-    float* __restrict__ out, int bs, int nb, int N) {
+template <class Src>
+__global__ void k_block_transfer_grad(Src src, const float* __restrict__ Fp,
+                                      const float* __restrict__ ap,
+                                      float* __restrict__ out, int bs, int nb,
+                                      int N) {
     const long long lanes = (long long)nb * N;
     const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= lanes) return;
@@ -26,10 +30,10 @@ __global__ void k_block_transfer_grad(
     for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
         float l0[NGSF_UNROLL], l2[NGSF_UNROLL], ff[NGSF_UNROLL],
             dd[NGSF_UNROLL];
-        chunk_load(g0, g2, fc, dc, r0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
+        chunk_load(src, r0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
 #pragma unroll
         for (int u = 0; u < NGSF_UNROLL; ++u) {
-            const SiteK k = site_load(l0[u], l2[u], ff[u], dd[u], a);
+            const SiteK k = src.site(l0[u], l2[u], ff[u], dd[u], a);
             float m00, m01, m10, m11;
             site_matrix(k, F, m00, m01, m10, m11);
             // tangents of M: dM/dF = onem [[-e0, e1], [-e0, e1]];
@@ -74,15 +78,30 @@ __global__ void k_block_transfer_grad(
     o[12 * lanes] = (float)ex * NGSF_LN2;
 }
 
+template <class Src>
+static int launch(Src src, const float* F, const float* alpha, float* out,
+                  int bs, int nb, int N, void* stream) {
+    const int threads = 128;
+    const long long lanes = (long long)nb * N;
+    const unsigned grid = (unsigned)((lanes + threads - 1) / threads);
+    k_block_transfer_grad<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        src, F, alpha, out, bs, nb, N);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ngsf_block_transfer_grad(const float* g0, const float* g2,
                                         const float* fc, const float* dc,
                                         const float* F, const float* alpha,
                                         float* out, int bs, int nb, int N,
                                         void* stream) {
-    const int threads = 128;
-    const long long lanes = (long long)nb * N;
-    const unsigned grid = (unsigned)((lanes + threads - 1) / threads);
-    k_block_transfer_grad<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        g0, g2, fc, dc, F, alpha, out, bs, nb, N);
-    return (int)cudaGetLastError();
+    return launch(GlSource{g0, g2, fc, dc}, F, alpha, out, bs, nb, N, stream);
+}
+
+extern "C" int ngsf_block_transfer_grad_v1(const float* e0, const float* e1,
+                                           const float* dc, const float* F,
+                                           const float* alpha, float* out,
+                                           int bs, int nb, int L,
+                                           void* stream) {
+    return launch(EmSource{e0, e1, nullptr, dc}, F, alpha, out, bs, nb, L,
+                  stream);
 }

@@ -1,15 +1,23 @@
-// Shared device code of the HMM chain kernels (gl layout).
+// Shared device code of the HMM chain kernels.
 //
 // Layout: the chain of S sites is cut into nb blocks of bs sites; global
-// site s = j * bs + r. One thread owns one (block j, individual n) lane,
+// site s = j * bs + r. One thread owns one (block j, column n) lane,
 // lane = j * N + n, and walks its block's bs sites in a loop with the 2x2
-// carry in registers. The genotype-likelihood channels gl0 / gl2 are
-// slabs [bs, nb, N] (site-in-block major), so that at a fixed r the
-// threads of a warp read neighbouring addresses; per-site freq / dist
-// are [bs, nb] and reach the N threads of a block through the cache.
+// carry in registers. The streamed channels are slabs [bs, nb, N]
+// (site-in-block major), so that at a fixed r the threads of a warp read
+// neighbouring addresses; per-site values are [bs, nb] compacts and reach
+// the N threads of a block through the cache.
 //
-// Pads (sites past S in the last block) carry freq = 2 (sentinel:
-// emission exactly 1) and dist = 0 (identity transition): exact no-ops.
+// Two emission sources feed the same stream kernels (each kernel is a
+// template over the source, instantiated once for each):
+//   GlSource  (v2, "gl layout"): gl0 / gl2 slabs + the per-site freq
+//             compact; the emissions are built in-kernel. Pads carry
+//             freq = 2 (sentinel: emission exactly 1).
+//   EmSource  (v1, "emission layout"): precomputed linear emission slabs
+//             e0 / e1 (columns = individuals, or replicate x individual
+//             when replicates are flattened). Pads carry e = 1.
+// Both read the per-site distance compact; pads carry dist = 0 (identity
+// transition), so pad sites are exact no-ops.
 //
 // Everything here is compiled with -fmad=false: the grad kernel's primal
 // rows must equal the transfer kernel's output bit for bit, and both get
@@ -79,24 +87,57 @@ __device__ __forceinline__ float max4(float a, float b, float c, float d) {
     return fmaxf(fmaxf(a, b), fmaxf(c, d));
 }
 
+// v2 source: emissions from (gl0, gl2, freq) through site_load.
+struct GlSource {
+    const float* a;   // gl0 slab [bs, nb, N]
+    const float* b;   // gl2 slab [bs, nb, N]
+    const float* fc;  // freq compact [bs, nb], pad 2.0
+    const float* dc;  // dist compact [bs, nb], pad 0
+    static constexpr bool kFreq = true;
+    static constexpr float kPad = 1.0f / 3.0f;  // pad gl (any value works)
+    __device__ __forceinline__ SiteK site(float g0, float g2, float f,
+                                          float d, float al) const {
+        return site_load(g0, g2, f, d, al);
+    }
+};
+
+// v1 source: precomputed linear emissions; a pad cell holds e = 1.
+struct EmSource {
+    const float* a;   // e0 slab [bs, nb, L]
+    const float* b;   // e1 slab [bs, nb, L]
+    const float* fc;  // unused
+    const float* dc;  // dist compact [bs, nb], pad 0
+    static constexpr bool kFreq = false;
+    static constexpr float kPad = 1.0f;
+    __device__ __forceinline__ SiteK site(float e0, float e1, float,
+                                          float d, float al) const {
+        SiteK k;
+        k.e0 = e0;
+        k.e1 = e1;
+        k.x = expf(-al * d);
+        k.onem = 1.0f - k.x;
+        k.d = d;
+        return k;
+    }
+};
+
 // Loads one chunk of NGSF_UNROLL sites of a lane; sites at or past bs get
 // the pad values, so the chunk's tail is a no-op.
+template <class Src>
 __device__ __forceinline__ void chunk_load(
-    const float* __restrict__ g0, const float* __restrict__ g2,
-    const float* __restrict__ fc, const float* __restrict__ dc,
-    int r0, int bs, int nb, int j, long long lane, long long lanes,
-    float* a0, float* a2, float* ff, float* dd) {
+    const Src& src, int r0, int bs, int nb, int j, long long lane,
+    long long lanes, float* a0, float* a2, float* ff, float* dd) {
 #pragma unroll
     for (int u = 0; u < NGSF_UNROLL; ++u) {
         const int r = r0 + u;
         if (r < bs) {
             const long long o = (long long)r * lanes + lane;
-            a0[u] = __ldg(g0 + o);
-            a2[u] = __ldg(g2 + o);
-            ff[u] = __ldg(fc + (long long)r * nb + j);
-            dd[u] = __ldg(dc + (long long)r * nb + j);
+            a0[u] = __ldg(src.a + o);
+            a2[u] = __ldg(src.b + o);
+            ff[u] = Src::kFreq ? __ldg(src.fc + (long long)r * nb + j) : 0.0f;
+            dd[u] = __ldg(src.dc + (long long)r * nb + j);
         } else {
-            a0[u] = a2[u] = 1.0f / 3.0f;
+            a0[u] = a2[u] = Src::kPad;
             ff[u] = 2.0f;
             dd[u] = 0.0f;
         }

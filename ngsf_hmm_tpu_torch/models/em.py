@@ -7,12 +7,14 @@ optimises ALL individuals simultaneously with a batched box-constrained
 L-BFGS on analytic gradients, and the convergence bookkeeping
 (EM.cpp:56,75-97) is replicated exactly on the host (models/driver.py).
 
-This module carries the fused single-device route only: float32, the
-chain kernels of models/hmm_kernels.py, the freq M-step on the est_maf
-kernels of ops/maf_kernels.py (freq_est 1, the default) or allele
-frequencies held fixed (freq_est 0), e_prob_calc 1, one replicate. Every
-other option value raises NotImplementedError naming the ROADMAP item
-that will bring it.
+This module carries the single-device kernel routes: float32, the freq
+M-step on the est_maf kernels of ops/maf_kernels.py (freq_est 1, the
+default) or allele frequencies held fixed (freq_est 0), e_prob_calc 1.
+One replicate runs the fused route (models/hmm_kernels.py, emissions
+built in-kernel from (gl, freq)); R > 1 replicates flattened into the
+column axis (models/restart.py) run the emission-slab route
+(models/hmm_kernels_v1.py). Every other option value raises
+NotImplementedError naming the ROADMAP item that will bring it.
 
 State layout (site-major, 0-based):
   gl      [S, N, 3]  normalised log genotype likelihoods (read-only)
@@ -34,7 +36,7 @@ from ..ops.emissions import calc_emission, emission_probs_linear
 from ..ops.hwe import check_interv
 from ..ops.maf import macro_schedule
 from ..utils.constants import ALPHA_MAX, ALPHA_MIN, F_MAX, F_MIN
-from . import hmm_kernels
+from . import hmm_kernels, hmm_kernels_v1
 from .hmm import viterbi
 from .lbfgsb import MVAL, lbfgsb_minimize
 
@@ -101,15 +103,21 @@ class EMResult:
 def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
             block_size=None, gl_bf16=False):
     """Raise for every option value this package does not carry yet."""
+    if n_rep < 1:
+        raise ValueError(f"n_rep must be >= 1, got {n_rep}")
+    if n_rep > 1 and (freq_est not in (0, 1) or e_prob_calc != 1):
+        # the JAX package runs these replicates vmapped on its linear
+        # tier (models/restart.py:91-97), which is not ported
+        raise NotImplementedError(
+            f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
+            f"{e_prob_calc} (ROADMAP queue 1: 'The LD path', "
+            "'models/hmm_blocked.py')")
     if freq_est not in (0, 1):
         raise NotImplementedError(
             f"freq_est {freq_est} (ROADMAP queue 1: 'The LD path')")
     if e_prob_calc != 1:
         raise NotImplementedError(
             f"e_prob_calc {e_prob_calc} (ROADMAP queue 1: 'The LD path')")
-    if n_rep != 1:
-        raise NotImplementedError(
-            f"n_rep {n_rep} (ROADMAP queue 1: 'Multi-restart')")
     if numerics != "pallas":
         raise NotImplementedError(
             f"numerics {numerics!r} (ROADMAP queue 1: 'The f64 scan tier' / "
@@ -222,8 +230,23 @@ def em_iteration(
     returned state carries the STALE p_ibd and run_em rebuilds it at loop
     exit. The kernels are deterministic, so the rebuilt p_ibd equals the
     one the undeferred loop carries bit for bit on either route.
+
+    n_rep: R > 1 runs R lockstep replicates FLATTENED into the column axis
+    (JAX em.py n_rep contract): gl stays [S, N, 3] (shared),
+    state.indF/alpha/ind_lkl are [R*N], state.e_prob/p_ibd are [S, R*N, ..]
+    with column r*N+i = (replicate r, individual i), state.freq is [R, S],
+    and stats.fwbw_maxdiff is [R]. That route reads emission slabs
+    (models/hmm_kernels_v1.py); prep_slabs is then the (g0, g2) gl slab
+    pair of the freq M-step (None under freq_est 0) and defer_* do not
+    apply. Requires freq_est in (0, 1) and e_prob_calc == 1.
     """
     _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size, gl_bf16)
+    if n_rep > 1:
+        st, stats, slabs, mem = _em_iteration_flat(
+            gl, dist, state, n_rep, freq_est, indF_fixed, alpha_fixed,
+            prep_slabs, opt_memory)
+        return ((st, stats) + ((slabs,) if return_prep else ())
+                + ((mem,) if return_opt else ()))
     S, N = gl.shape[0], gl.shape[1]
     dtype = gl.dtype
 
@@ -255,41 +278,14 @@ def em_iteration(
     ind_lkl = ll_f.to(dtype)
 
     # ---- M-step 1: per-individual (F, alpha) (EM.cpp:189-206)
-    opt_mem = opt_memory
-    if indF_fixed and alpha_fixed:
-        indF, alpha = state.indF, state.alpha
-        opt_iters = 0
-    else:
-        def box(fixed, value, bound):
-            return value if fixed else torch.full_like(value, bound)
-
-        x0 = torch.stack([state.indF, state.alpha], dim=-1)
-        lo = torch.stack([box(indF_fixed, state.indF, F_MIN),
-                          box(alpha_fixed, state.alpha, ALPHA_MIN)], dim=-1)
-        hi = torch.stack([box(indF_fixed, state.indF, F_MAX),
-                          box(alpha_fixed, state.alpha, ALPHA_MAX)], dim=-1)
-
-        def objective_vag(x):
-            L, gF, ga = hmm_kernels.loglik_value_and_grad_fused(
-                x[:, 0], x[:, 1], prep2, fc
-            )
-            return -L.to(dtype), -torch.stack([gF, ga], dim=-1).to(dtype)
-
+    indF, alpha, opt_iters, opt_mem = _mstep_indF_alpha(
+        state, indF_fixed, alpha_fixed,
+        lambda F, a: hmm_kernels.loglik_value_and_grad_fused(F, a, prep2, fc),
+        opt_memory,
         # the E-step's fused stream already evaluated the chain AND its
-        # tangents at exactly these params: assemble the optimizer's
-        # first (value, gradient) from its carries instead of
-        # re-streaming. Valid only when the box clip is a no-op;
-        # out-of-box inits take a real evaluation.
-        if bool(torch.all((x0 >= lo) & (x0 <= hi))):
-            L0, gF0, ga0 = hmm_kernels.grad_from_carries(A_g0, state.indF)
-            f0g0 = (-L0.to(dtype), -torch.stack([gF0, ga0], dim=-1).to(dtype))
-        else:
-            f0g0 = objective_vag(torch.clamp(x0, lo, hi))
-        x_opt, _, opt_iters, opt_mem = lbfgsb_minimize(
-            None, x0, lo, hi, value_and_grad=objective_vag,
-            warm=opt_memory, return_memory=True, f0g0=f0g0,
-        )
-        indF, alpha = x_opt[:, 0], x_opt[:, 1]
+        # tangents at exactly these params
+        seed=lambda: hmm_kernels.grad_from_carries(A_g0, state.indF),
+    )
 
     # ---- M-step 2: per-site freq + emission recompute (EM.cpp:210-272)
     if freq_est == 0:
@@ -310,6 +306,114 @@ def em_iteration(
     if return_opt:
         out = out + (opt_mem,)
     return out
+
+
+def _mstep_indF_alpha(state, indF_fixed, alpha_fixed, vag, opt_memory,
+                      seed=None):
+    """The (F, alpha) M-step (EM.cpp:189-206): one batched box-constrained
+    L-BFGS over every row of state.indF / state.alpha. vag(F, alpha) ->
+    (ll, dL/dF, dL/dalpha), each [rows]. seed() gives the same triple at
+    the entering params without a new stream; it is used for the first
+    evaluation when the box clip is a no-op (out-of-box inits take a real
+    evaluation). Returns (indF, alpha, opt_iters, opt_memory)."""
+    if indF_fixed and alpha_fixed:
+        return state.indF, state.alpha, 0, opt_memory
+    dtype = state.indF.dtype
+
+    def box(fixed, value, bound):
+        return value if fixed else torch.full_like(value, bound)
+
+    x0 = torch.stack([state.indF, state.alpha], dim=-1)
+    lo = torch.stack([box(indF_fixed, state.indF, F_MIN),
+                      box(alpha_fixed, state.alpha, ALPHA_MIN)], dim=-1)
+    hi = torch.stack([box(indF_fixed, state.indF, F_MAX),
+                      box(alpha_fixed, state.alpha, ALPHA_MAX)], dim=-1)
+
+    def objective_vag(x):
+        L, gF, ga = vag(x[:, 0], x[:, 1])
+        return -L.to(dtype), -torch.stack([gF, ga], dim=-1).to(dtype)
+
+    f0g0 = None
+    if seed is not None:
+        if bool(torch.all((x0 >= lo) & (x0 <= hi))):
+            L0, gF0, ga0 = seed()
+            f0g0 = (-L0.to(dtype), -torch.stack([gF0, ga0], dim=-1).to(dtype))
+        else:
+            f0g0 = objective_vag(torch.clamp(x0, lo, hi))
+    x_opt, _, opt_iters, opt_mem = lbfgsb_minimize(
+        None, x0, lo, hi, value_and_grad=objective_vag,
+        warm=opt_memory, return_memory=True, f0g0=f0g0,
+    )
+    return x_opt[:, 0], x_opt[:, 1], opt_iters, opt_mem
+
+
+def _em_iteration_flat(gl, dist, state, n_rep, freq_est, indF_fixed,
+                       alpha_fixed, gl_slabs, opt_memory):
+    """em_iteration with R = n_rep > 1 replicates flattened into the
+    column axis (JAX em.py:363-375, :451-463, :527-542). Returns (state,
+    stats, gl_slabs, opt_memory).
+
+    E-step: the emission-slab chain kernels on exp(state.e_prob), then the
+    check_interv snap and fwbw_maxdiff per replicate. (F, alpha) M-step:
+    L-BFGS over the R*N rows, every evaluation one transfer + tangent
+    stream (the JAX route has no E-step/M-step merge here). freq M-step:
+    one est_maf per replicate on the gl slabs at this geometry and the
+    replicate's contiguous cut of the posterior slab, SNAPPED as the JAX
+    route reads state.p_ibd: est_maf_slab where macro_schedule(N) gives a
+    schedule (keyed on N, as the JAX vmap sees [S, N]), else
+    est_maf_exact(snap=True); then the replicate's emissions, linear ->
+    log, written back into its columns."""
+    S, N = gl.shape[0], gl.shape[1]
+    R, L = n_rep, n_rep * N
+    dtype = gl.dtype
+    if tuple(state.indF.shape) != (L,) or tuple(state.freq.shape) != (R, S):
+        raise ValueError(
+            f"n_rep {R}: expected a flattened state (indF [{L}], freq "
+            f"[{R}, {S}]), got indF {tuple(state.indF.shape)}, freq "
+            f"{tuple(state.freq.shape)} (models/restart.flatten_states)")
+
+    # ---- E-step: forward-backward posteriors (EM.cpp:147-185)
+    bs, nb = hmm_kernels.pick_geom2(S, L)
+    prep = hmm_kernels_v1.prepare_inputs(state.e_prob, dist, bs=bs)
+    p_raw, ll_f, ll_b, p_slab = hmm_kernels_v1.posteriors_v1(
+        state.indF, state.alpha, prep, return_slab=True)
+    p_ibd = check_interv(p_raw.to(dtype))
+    del p_raw
+    fwbw_maxdiff = torch.abs(ll_f - ll_b).reshape(R, N).amax(1)
+    ind_lkl = ll_f.to(dtype)
+
+    # ---- M-step 1: per-individual (F, alpha) (EM.cpp:189-206)
+    indF, alpha, opt_iters, opt_mem = _mstep_indF_alpha(
+        state, indF_fixed, alpha_fixed,
+        lambda F, a: hmm_kernels_v1.loglik_value_and_grad_v1(F, a, prep),
+        opt_memory)
+    del prep
+
+    # ---- M-step 2: per-replicate freq + emission recompute (EM.cpp:210-272)
+    if freq_est == 0:
+        freq, e_prob = state.freq, state.e_prob
+    else:
+        gl_lin = torch.exp(gl)
+        if gl_slabs is None:
+            gl_slabs = hmm_kernels.gl_slabs(gl_lin, bs, nb)
+        # (est_maf reads no distances: the prep's dc stays None)
+        prep2 = hmm_kernels.make_prep2(*gl_slabs, None, S, N, bs, nb)
+        macro = macro_schedule(N) is not None
+        freq = torch.empty((R, S), dtype=dtype, device=gl.device)
+        e_prob = torch.empty_like(state.e_prob)
+        for r in range(R):
+            p_r = p_slab[:, :, r * N:(r + 1) * N].contiguous()
+            if macro:
+                f_r = maf_kernels.est_maf_slab(prep2, check_interv(p_r))
+            else:
+                f_r = maf_kernels.est_maf_exact(prep2, p_r, snap=True)
+            freq[r] = f_r.to(dtype)
+            e_prob[:, r * N:(r + 1) * N] = torch.log(
+                emission_probs_linear(gl_lin, freq[r][:, None])).to(dtype)
+        del gl_lin
+    new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ind_lkl)
+    return (new_state, IterStats(fwbw_maxdiff, opt_iters), gl_slabs,
+            opt_mem)
 
 
 def restore_opt_memory(raw, n_cols, dtype, m=None, device="cuda"):

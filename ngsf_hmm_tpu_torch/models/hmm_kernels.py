@@ -1,4 +1,4 @@
-"""The HMM chain kernels ("gl layout") and the functions built on them.
+"""The HMM chain kernels ("gl layout", v2) and the functions built on them.
 
 The chain of S sites is cut into nb blocks of bs sites. Four CUDA kernels
 (``csrc/*.cu``) stream the genotype likelihoods once each, one thread per
@@ -26,6 +26,12 @@ products [nb, K, B, N], posteriors [S, N], log-likelihoods [N]. The
 log-likelihoods are float64: the combine sums the block offsets in
 double, so |ll_f - ll_b| measures the chain arithmetic and not the
 rounding of a float32 sum.
+
+The same four CUDA kernels also read precomputed emission slabs (each is
+a template over its emission source); that layout and its functions are
+in models/hmm_kernels_v1.py. The plain versions share their loops the
+same way: each loop below takes a ``site(r, a)`` function giving one
+within-block site's (e0, e1, x, onem).
 """
 
 import math
@@ -152,6 +158,12 @@ def _site_plain(g0r, g2r, fr, dr, a):
     return e0, e1, x, 1.0 - x
 
 
+def _gl_site(g0, g2, fc, dc):
+    """The v2 emission source of the plain loops: site r, decay rate a ->
+    _site_plain's (e0, e1, x, onem)."""
+    return lambda r, a: _site_plain(g0[r], g2[r], fc[r], dc[r], a)
+
+
 def _site_matrix_plain(e0, e1, x, onem, F):
     t00 = onem * (1.0 - F) + x
     t01 = onem * F
@@ -195,24 +207,30 @@ def _check_stream_args(name, g0, g2, fc, dc, F, alpha, B=None):
 # ---------------------------------------------------------------------------
 
 
-def _block_transfer_plain(g0, g2, fc, dc, F, alpha):
-    """Plain version of csrc/block_transfer.cu: F/alpha [B, N] ->
-    [5, B, nb, N]."""
-    PLAIN_CALLS["block_transfer"] += 1
-    bs, nb, N = g0.shape
+def _transfer_loop(site, shape, F, alpha, device):
+    """csrc/block_transfer.cu's loop: F/alpha [B, N] -> [5, B, nb, N]."""
+    bs, nb, N = shape
     B = F.shape[0]
     Fb, ab = F[:, None, :], alpha[:, None, :]
-    one = torch.ones((B, nb, N), dtype=_f32, device=g0.device)
+    one = torch.ones((B, nb, N), dtype=_f32, device=device)
     c = (one, torch.zeros_like(one), torch.zeros_like(one), one.clone())
-    ex = torch.zeros((B, nb, N), dtype=torch.int32, device=g0.device)
+    ex = torch.zeros((B, nb, N), dtype=torch.int32, device=device)
     for r in range(bs):
-        e0, e1, x, onem = _site_plain(g0[r], g2[r], fc[r], dc[r], ab)
+        e0, e1, x, onem = site(r, ab)
         m = _site_matrix_plain(e0, e1, x, onem, Fb)
         n = _mm4(c, m)
         sc, e = _pow2_rescale(_tiny(_max4(*n)))
         c = tuple(v * sc for v in n)
         ex = ex + e
     return torch.stack(c + (ex.to(_f32) * _LN2,))
+
+
+def _block_transfer_plain(g0, g2, fc, dc, F, alpha):
+    """Plain version of csrc/block_transfer.cu: F/alpha [B, N] ->
+    [5, B, nb, N]."""
+    PLAIN_CALLS["block_transfer"] += 1
+    return _transfer_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha,
+                          g0.device)
 
 
 def _k_block_transfer(g0, g2, fc, dc, F, alpha):
@@ -243,21 +261,20 @@ def _k_block_transfer(g0, g2, fc, dc, F, alpha):
 # ---------------------------------------------------------------------------
 
 
-def _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha):
-    """Plain version of csrc/block_transfer_grad.cu: F/alpha [N] ->
-    [13, nb, N]. The primal rows go through the same functions as
-    _block_transfer_plain, so they equal its output bit for bit."""
-    PLAIN_CALLS["block_transfer_grad"] += 1
-    bs, nb, N = g0.shape
+def _transfer_grad_loop(site, dc, shape, F, alpha, device):
+    """csrc/block_transfer_grad.cu's loop: F/alpha [N] -> [13, nb, N]. The
+    primal rows go through the same functions as _transfer_loop, so they
+    equal its output bit for bit."""
+    bs, nb, N = shape
     Fb, ab = F[None, :], alpha[None, :]
-    one = torch.ones((nb, N), dtype=_f32, device=g0.device)
+    one = torch.ones((nb, N), dtype=_f32, device=device)
     zero = torch.zeros_like(one)
     c = (one, zero, zero, one.clone())
     cF = (zero,) * 4
     ca = (zero,) * 4
-    ex = torch.zeros((nb, N), dtype=torch.int32, device=g0.device)
+    ex = torch.zeros((nb, N), dtype=torch.int32, device=device)
     for r in range(bs):
-        e0, e1, x, onem = _site_plain(g0[r], g2[r], fc[r], dc[r], ab)
+        e0, e1, x, onem = site(r, ab)
         m = _site_matrix_plain(e0, e1, x, onem, Fb)
         # d x forced to 0 at a chromosome break (d = inf, x = 0)
         dxp = torch.where(x > 0.0, dc[r][:, None] * x, torch.zeros_like(x))
@@ -274,6 +291,14 @@ def _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha):
         ca = tuple(v * sc for v in na)
         ex = ex + e
     return torch.stack(c + cF + ca + (ex.to(_f32) * _LN2,))
+
+
+def _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha):
+    """Plain version of csrc/block_transfer_grad.cu: F/alpha [N] ->
+    [13, nb, N]."""
+    PLAIN_CALLS["block_transfer_grad"] += 1
+    return _transfer_grad_loop(_gl_site(g0, g2, fc, dc), dc, g0.shape, F,
+                               alpha, g0.device)
 
 
 def _k_block_transfer_grad(g0, g2, fc, dc, F, alpha):
@@ -305,23 +330,29 @@ def _k_block_transfer_grad(g0, g2, fc, dc, F, alpha):
 # ---------------------------------------------------------------------------
 
 
-def _bw_sites_plain(g0, g2, fc, dc, F, alpha, ends):
-    """Plain version of csrc/bw_sites.cu: ends [2, nb, N] -> ratio slab
+def _bw_loop(site, shape, F, alpha, ends, device):
+    """csrc/bw_sites.cu's loop: ends [2, nb, N] -> ratio slab
     [bs, nb, N]."""
-    PLAIN_CALLS["bw_sites"] += 1
-    bs = g0.shape[0]
     Fb, ab = F[None, :], alpha[None, :]
     w0, w1 = ends[0], ends[1]
-    out = torch.empty_like(g0)
-    for r in range(bs - 1, -1, -1):
+    out = torch.empty(shape, dtype=_f32, device=device)
+    for r in range(shape[0] - 1, -1, -1):
         out[r] = w1 / _tiny(w0 + w1)
-        e0, e1, x, onem = _site_plain(g0[r], g2[r], fc[r], dc[r], ab)
+        e0, e1, x, onem = site(r, ab)
         m00, m01, m10, m11 = _site_matrix_plain(e0, e1, x, onem, Fb)
         b0 = m00 * w0 + m01 * w1
         b1 = m10 * w0 + m11 * w1
         sc, _ = _pow2_rescale(_tiny(torch.maximum(b0, b1)))
         w0, w1 = b0 * sc, b1 * sc
     return out
+
+
+def _bw_sites_plain(g0, g2, fc, dc, F, alpha, ends):
+    """Plain version of csrc/bw_sites.cu: ends [2, nb, N] -> ratio slab
+    [bs, nb, N]."""
+    PLAIN_CALLS["bw_sites"] += 1
+    return _bw_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha, ends,
+                    g0.device)
 
 
 def _k_bw_sites(g0, g2, fc, dc, F, alpha, ends):
@@ -350,16 +381,14 @@ def _k_bw_sites(g0, g2, fc, dc, F, alpha, ends):
 # ---------------------------------------------------------------------------
 
 
-def _fw_post_plain(g0, g2, fc, dc, F, alpha, starts, bwr):
-    """Plain version of csrc/fw_post.cu: starts [2, nb, N], ratio slab ->
-    posterior slab [bs, nb, N]."""
-    PLAIN_CALLS["fw_post"] += 1
-    bs = g0.shape[0]
+def _fw_loop(site, shape, F, alpha, starts, bwr, device):
+    """csrc/fw_post.cu's loop: starts [2, nb, N], ratio slab -> posterior
+    slab [bs, nb, N]."""
     Fb, ab = F[None, :], alpha[None, :]
     v0, v1 = starts[0], starts[1]
-    out = torch.empty_like(g0)
-    for r in range(bs):
-        e0, e1, x, onem = _site_plain(g0[r], g2[r], fc[r], dc[r], ab)
+    out = torch.empty(shape, dtype=_f32, device=device)
+    for r in range(shape[0]):
+        e0, e1, x, onem = site(r, ab)
         m00, m01, m10, m11 = _site_matrix_plain(e0, e1, x, onem, Fb)
         n0 = v0 * m00 + v1 * m10
         n1 = v0 * m01 + v1 * m11
@@ -369,6 +398,14 @@ def _fw_post_plain(g0, g2, fc, dc, F, alpha, starts, bwr):
         x1 = v1 * bwr[r]
         out[r] = x1 / _tiny(x0 + x1)
     return out
+
+
+def _fw_post_plain(g0, g2, fc, dc, F, alpha, starts, bwr):
+    """Plain version of csrc/fw_post.cu: starts [2, nb, N], ratio slab ->
+    posterior slab [bs, nb, N]."""
+    PLAIN_CALLS["fw_post"] += 1
+    return _fw_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha, starts,
+                    bwr, g0.device)
 
 
 def _k_fw_post(g0, g2, fc, dc, F, alpha, starts, bwr):

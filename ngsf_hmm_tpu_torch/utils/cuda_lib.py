@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+# The four chain-kernel sources each export two instantiations of one
+# template: the gl-layout kernel and the emission-slab ("_v1") kernel.
 SOURCES = (
     "block_transfer.cu",
     "block_transfer_grad.cu",
@@ -58,6 +60,10 @@ _SIGNATURES = {
     "ngsf_block_transfer_grad": [_P] * 7 + [_I] * 3 + [_P],
     "ngsf_bw_sites": [_P] * 8 + [_I] * 3 + [_P],
     "ngsf_fw_post": [_P] * 9 + [_I] * 3 + [_P],
+    "ngsf_block_transfer_v1": [_P] * 6 + [_I] * 4 + [_P],
+    "ngsf_block_transfer_grad_v1": [_P] * 6 + [_I] * 3 + [_P],
+    "ngsf_bw_sites_v1": [_P] * 7 + [_I] * 3 + [_P],
+    "ngsf_fw_post_v1": [_P] * 8 + [_I] * 3 + [_P],
     "ngsf_combine_blocks": [_P, _L, _L, _L] + [_P] * 4 + [_I] * 3 + [_P],
     "ngsf_viterbi_f32": [_P] * 9 + [_I] * 3 + [_P],
     "ngsf_viterbi_f64": [_P] * 9 + [_I] * 3 + [_P],

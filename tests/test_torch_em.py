@@ -122,6 +122,8 @@ def test_unsupported_iteration_arguments_raise(runs):
     gl = torch.as_tensor(runs["gl"])
     dist = torch.as_tensor(runs["dist"]).float()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2, freq_est=2)
+    with pytest.raises(ValueError, match="flattened state"):
         t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         a = runs["arrays"]

@@ -55,6 +55,14 @@ def test_import_pulls_no_jax():
     r = _run(code)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("clean")
+    # the kernels build only on the card: here, every C entry point the
+    # loader binds is exported by one of the sources it compiles
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    text = "".join((cuda_lib.CSRC / s).read_text()
+                   for s in cuda_lib.SOURCES + cuda_lib.HEADERS)
+    for name in cuda_lib._SIGNATURES:
+        assert f'extern "C" int {name}(' in text, name
 
 
 @pytest.fixture(scope="module")
@@ -131,6 +139,13 @@ def test_cuda_without_a_card_raises(arrays):
                          device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_em.run_em(a["gl"], np.ones(50), st, t_em.EMOptions())
+    from ngsf_hmm_tpu_torch.models import restart
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restart.stack_restart_states(a["gl"], 2, 5)
+    sts = restart.stack_restart_states(a["gl"], 2, 5, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restart.run_em_restarts(a["gl"], np.ones(50), sts, t_em.EMOptions())
 
 
 def test_cli_end_to_end_on_cpu(arrays, tmp_path):
@@ -162,7 +177,9 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--freq_est", "2"], ["--freq_est", "0", "--mesh", "ind=2"],
-    ["--freq_est", "0", "--kernel", "scan"], ["--freq_est", "0", "--n_rep", "2"],
+    ["--freq_est", "0", "--kernel", "scan"],
+    # replicates run; with a checkpoint they stay refused
+    ["--freq_est", "0", "--checkpoint", "ck", "--n_rep", "2"],
     ["--freq_est", "0", "--opt", "compat"],
     ["--freq_est", "0", "--stream_chunk", "10"],
     ["--freq_est", "0", "--dtype", "float64"], ["--e_prob", "2"],
