@@ -13,8 +13,11 @@ needs one CUDA device and nvcc. It
      also held at 20 individuals; at the main shape the est_maf kernels
      are also timed in a second build with FMA contraction on; the
      emission-slab ("_v1") instantiations of the four stream kernels are
-     held at the ragged shape and at the restart path's shape,
-  4. drives four paths, each with the launch counts set to 0 just before
+     held at the ragged shape and at the restart path's shape; the row
+     est_maf kernel (maf_macro) at 33,333 sites x 40, 32 and 130
+     individuals and at the LD path's shape, and maf_exact on the row view
+     at 20 individuals,
+  4. drives six paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
        main     1,000,000 sites x 100 individuals, float32, freq_est 1 (the
@@ -28,12 +31,17 @@ needs one CUDA device and nvcc. It
                 stack_restart_states -> run_em_restarts, replicates
                 flattened into 2,000 columns on the emission-slab kernels,
                 freq_est 1, best-replicate Viterbi, no writers),
-  5. runs the CLI twice at a small size (--freq e, freq_est 1; once more
-     with --n_rep 3).
+       ld       the main path's data with --e_prob 2 --freq_est 1 (the LD
+                path: haplotype EM at init, LD emissions, the emission-slab
+                kernels and maf_macro every iteration), no writers,
+       ld2      the first 200,003 sites of that data with --freq_est 2
+                --e_prob 2 (the haplotype EM every iteration), no writers,
+  5. runs the CLI three times at a small size (--freq e, freq_est 1; once
+     more with --n_rep 3; once with --freq_est 2 --e_prob 2).
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
-its launches summed over the four paths and per path, its error against
-the plain version and its times.
+its launches summed over the paths and per path, its error against the
+plain version and its times.
 
 --rehearse runs the same control flow at a tiny size on the CPU through the
 plain versions (to find wrong shapes and paths without a card); it never
@@ -90,6 +98,9 @@ FLOPS_CELL = {
     "maf_exact_pass": 21,
     "maf_window_step": 16,
 }
+# maf_macro's operations: the planes of a cell, then per site the real
+# passes, gradient evaluations and window steps its data needs
+# (maf_pass, maf_grad per cell; maf_window_step per site).
 
 KERNELS = {
     # name: (source, TPU kernel replaced)
@@ -118,6 +129,8 @@ KERNELS = {
         "kernel)"),
     "maf_exact": ("ngsf_hmm_tpu_torch/csrc/maf_exact.cu",
                   "ngsf_hmm_tpu/ops/maf_pallas.py:85"),
+    "maf_macro": ("ngsf_hmm_tpu_torch/csrc/maf_macro.cu",
+                  "ngsf_hmm_tpu/ops/maf_pallas.py:167"),
     # the emission-slab instantiations of the four stream templates
     "block_transfer_grad_v1": (
         "ngsf_hmm_tpu_torch/csrc/block_transfer_grad.cu",
@@ -405,6 +418,65 @@ def probe_fmad(torch, prep, p_slab, timer, label):
         f"{d:.3g}")
 
 
+def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
+    """What the LD path's freq M-step reads at this shape: the linear gl
+    planes (maf_kernels.gl_rows) and the snapped posterior [S, N] that the
+    chain kernels give at (freq, F, alpha); also the gl-slab prep and the
+    snapped posterior slab, est_maf_slab's view of the same data."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+
+    f32 = torch.float32
+    gl_t = torch.as_tensor(gl).to(dev, f32)
+    prep = hk.prepare_gl_inputs(torch.exp(gl_t),
+                                torch.as_tensor(dist).to(dev, f32))
+    p_sites, _, _, p_slab = hk.posteriors_fused(
+        torch.as_tensor(F).to(dev, f32), torch.as_tensor(alpha).to(dev, f32),
+        prep, hk.freq_compact(torch.as_tensor(freq).to(dev, f32), prep),
+        return_slab=True)
+    return (mk.gl_rows(gl_t), check_interv(p_sites).contiguous(), prep,
+            check_interv(p_slab))
+
+
+def check_maf_macro(torch, rows, p, rec, timer, slab=None):
+    """maf_macro against its plain version on [S, N] rows (rows = (g0, g2),
+    p the snapped posterior) at this shape's schedule. slab = (prep,
+    p_slab): also time est_maf_rows against est_maf_slab on the same
+    snapped posterior and print their difference (information: the two
+    routes run the same arithmetic, in one launch or in seven)."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    g0, g2 = rows
+    S, N = g0.shape
+    K0, M = tmaf.macro_schedule(N)
+    Ms = tmaf.macro_rounds(K0, M)
+    k, ms = timer(lambda: mk._k_maf_macro(g0, g2, p, K0, Ms))
+    tally = {"pass": [], "grad": [], "step": []}
+    w, pms = timer(lambda: mk._macro_rows_plain(g0, g2, p, K0, Ms, tally),
+                   reps=1, warm=0)
+    err = maf_compare(torch, rec, "maf_macro", k[None], w[None], ["freq"])
+    work = {kind: float(torch.stack(v).sum()) for kind, v in tally.items()}
+    fc = FLOPS_CELL
+    rec.record("maf_macro", err, ms, pms, 3 * S * N * 4 + S * 4,
+               S * N * fc["maf_planes"] + work["pass"] * N * fc["maf_pass"]
+               + work["grad"] * N * fc["maf_grad"]
+               + work["step"] * fc["maf_window_step"])
+    log(f"[{rec.label}] maf_macro: schedule K0 = {K0}, windows {Ms}; per "
+        f"site {work['pass'] / S:.2f} real passes, {work['grad'] / S:.2f} "
+        f"gradient evaluations, {work['step'] / S:.1f} window steps")
+    if slab is not None:
+        prep, p_slab = slab
+        f_slab, ms_slab = timer(lambda: mk.est_maf_slab(prep, p_slab))
+        f_rows, ms_rows = timer(lambda: mk.est_maf_rows(g0, g2, p))
+        d = float((f_rows - f_slab).abs().max())
+        log(f"[{rec.label}] est_maf_rows (maf_macro, 1 launch) {ms_rows:.3f} "
+            f"ms against est_maf_slab (kernel A, windows, kernel B: "
+            f"{2 * len(Ms)} launches) {ms_slab:.3f} ms on the same "
+            f"snapped posterior: freq max diff {d:.3g} (information)")
+
+
 def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     """The four stream kernels of one emission source (v1=False: the gl
     slabs of models/hmm_kernels.py, sl = (g0, g2, fc, dc); v1=True: the
@@ -632,19 +704,21 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
 
 
 class MafTimer:
-    """While active, times every freq M-step of em_iteration (the two
-    est_maf entry points of ops/maf_kernels) with CUDA events; `ms()`
-    gives one time per call."""
+    """While active, times every freq M-step of em_iteration (the three
+    est_maf entry points of ops/maf_kernels; or the functions `names` of
+    module `mod`) with CUDA events; `ms()` gives one time per call."""
 
-    NAMES = ("est_maf_slab", "est_maf_exact")
+    NAMES = ("est_maf_slab", "est_maf_exact", "est_maf_rows")
 
-    def __init__(self, torch, dev):
-        from ngsf_hmm_tpu_torch.ops import maf_kernels
-        self.torch, self.cuda, self.mod = torch, dev.type == "cuda", maf_kernels
+    def __init__(self, torch, dev, mod=None, names=None):
+        if mod is None:
+            from ngsf_hmm_tpu_torch.ops import maf_kernels as mod
+        self.torch, self.cuda, self.mod = torch, dev.type == "cuda", mod
+        self.names = names or self.NAMES
         self.spans = []
 
     def __enter__(self):
-        self.saved = {n: getattr(self.mod, n) for n in self.NAMES}
+        self.saved = {n: getattr(self.mod, n) for n in self.names}
         for name, fn in self.saved.items():
             setattr(self.mod, name, self._timed(fn))
         return self
@@ -955,11 +1029,148 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
     return counts
 
 
-def run_cli(dev, seed, n_rep=1):
+def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
+                freq_est):
+    """The LD path: init_state(e_prob_calc=2) (the haplotype EM at init and
+    the LD emissions) -> run_em with e_prob_calc 2 and freq_est 1 (the
+    emission-slab kernels and maf_macro every iteration) or 2 (the
+    haplotype EM every iteration) -> Viterbi, from a flat freq 0.2, no
+    writers, with the launch counts set to 0 just before and read just
+    after; fails unless every kernel of the route was launched, no plain
+    version was called, |ll_f - ll_b| <= 1e-3 in every iteration and what
+    came out is sound. Returns the launch counts."""
+    from ngsf_hmm_tpu_torch.models import em as tem
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    S, N = gl.shape[0], gl.shape[1]
+    opts = tem.EMOptions(freq_est=freq_est, e_prob_calc=2, min_iters=3,
+                         max_iters=4, verbose=0)
+    iters, fwbw = [], []
+
+    def trace(event, **kw):
+        if event == "iter_done":
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            iters.append((kw["dt"], kw["tot_lkl"],
+                          cuda_lib.LAUNCHES["block_transfer_grad_v1"]))
+
+    em_iteration = tem.em_iteration
+
+    def tapped(*a, **kw):  # records each iteration's max |ll_f - ll_b|
+        out = em_iteration(*a, **kw)
+        fwbw.append(float(out[1].fwbw_maxdiff))
+        return out
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    with MafTimer(torch, dev, tem, ("haplo_freq",)) as hap_init:
+        state = tem.init_state(gl, np.full(S, 0.2), indF0, alpha0,
+                               e_prob_calc=2, device=dev)
+        sync()
+    t_init = time.perf_counter() - t0
+    e_head = state.e_prob[1:1001].clone()
+    tem.em_iteration = tapped
+    try:
+        with MafTimer(torch, dev) as maf_timer, MafTimer(
+                torch, dev, tem, ("haplo_freq",)) as hap_timer:
+            res = tem.run_em(gl, dist, state, opts, trace=trace, device=dev)
+            sync()
+    finally:
+        tem.em_iteration = em_iteration
+    del state
+    t_all = time.perf_counter() - t0
+    counts = dict(cuda_lib.LAUNCHES)
+    plain = dict(cuda_lib.PLAIN_CALLS)
+
+    # ---- what came out
+    need = V1_KERNELS + ("combine_blocks", "viterbi") + (
+        ("maf_macro",) if freq_est == 1 else ())
+    if dev.type == "cuda":
+        if plain:
+            fail(f"[{label}] the path called plain versions: {plain}")
+        missing = [k for k in need if counts.get(k, 0) < 1]
+        if missing:
+            fail(f"[{label}] never launched: {missing} (counts {counts})")
+        fused = [k for k in CHAIN_KERNELS[:4] + SLAB_KERNELS
+                 if counts.get(k, 0)]
+        if fused:
+            fail(f"[{label}] the LD route launched gl-slab kernels {fused}")
+    elif not plain:
+        fail("rehearsal: no plain version was called")
+    if not (opts.min_iters <= res.n_iters <= opts.max_iters
+            and len(iters) == len(fwbw) == res.n_iters):
+        fail(f"[{label}] expected 3 or 4 EM iterations, ran {res.n_iters}")
+    h = res.lkl_history
+    if not np.all(np.isfinite(h)) or max(fwbw) > 1e-3:
+        fail(f"[{label}] log-likelihoods {h}, |ll_f - ll_b| {fwbw}")
+    st = res.state
+    to_np = lambda t: t.detach().cpu().numpy()
+    freq, p_ibd = to_np(st.freq), to_np(st.p_ibd)
+    if freq.shape != (S,) or not np.all(np.isfinite(freq)) or not np.all(
+            (freq >= 0) & (freq <= 1)):
+        fail(f"[{label}] freq not finite in [0, 1] or of the wrong shape")
+    if p_ibd.shape != (S, N) or not np.all((p_ibd >= 0) & (p_ibd <= 1)):
+        fail(f"[{label}] p_ibd not in [0, 1] or of the wrong shape")
+    if res.path.shape != (S, N) or not np.isin(res.path, (0, 1)).all():
+        fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
+    if not bool(torch.isfinite(st.e_prob).all()):
+        fail(f"[{label}] non-finite emissions")
+    # freq_est 1 recomputes site 0's emission only (EM.cpp:252): the LD
+    # emissions of the other sites stay as init made them
+    if freq_est == 1 and not torch.equal(st.e_prob[1:1001], e_head):
+        fail(f"[{label}] the LD emissions of sites >= 1 moved")
+    if freq_est == 2 and torch.equal(st.e_prob[1:1001], e_head):
+        fail(f"[{label}] the LD emissions were not recomputed")
+    f_err = float(np.abs(freq - freq_true).mean())
+    corr = float(np.corrcoef(freq, freq_true)[0, 1])
+    log(f"[{label}] freq: mean |freq - simulated| {f_err:.4f}, correlation "
+        f"with the simulated {corr:.3f}")
+    # the sanity band of run_path for the est_maf freqs; the haplotype
+    # EM's freqs are printed only
+    if freq_est == 1 and (f_err > 0.2 or corr < 0.3):
+        fail(f"[{label}] estimated freq unrelated to the simulated one")
+    maf_ms, hap_ms = maf_timer.ms(), hap_timer.ms()
+    n_maf = res.n_iters if freq_est == 1 else 0
+    n_hap = res.n_iters if freq_est == 2 else 0
+    if len(maf_ms) != n_maf or len(hap_ms) != n_hap:
+        fail(f"[{label}] {len(maf_ms)} est_maf and {len(hap_ms)} haplotype "
+             f"EM calls in {res.n_iters} iterations")
+
+    log(f"[{label}] S={S} N={N} float32 e_prob 2 freq_est {freq_est}: "
+        f"init_state {t_init:.2f} s (haplotype EM "
+        f"{sum(hap_init.ms()) / 1e3:.2f} s, then the LD emissions), init + "
+        f"{res.n_iters} EM iterations + Viterbi {t_all:.2f} s")
+    probes = np.diff([0] + [c for _, _, c in iters])
+    for i, ((dt, tot, _), n_str) in enumerate(zip(iters, probes), 1):
+        step = (f"freq M-step (est_maf_rows) {maf_ms[i - 1]:.3f} ms"
+                if freq_est == 1 else
+                f"haplotype EM {hap_ms[i - 1] / 1e3:.3f} s")
+        log(f"[{label}] iteration {i}: {dt:.3f} s, tot_lkl {tot:.3f}, "
+            f"|ll_f - ll_b| {fwbw[i - 1]:.3g}, transfer+tangent streams "
+            f"{n_str} (L-BFGS probes), L-BFGS outer iterations "
+            f"{res.opt_iters[i - 1]}, {step}")
+    log(f"[{label}] mean indF {to_np(st.indF).mean():.4f}, mean alpha "
+        f"{to_np(st.alpha).mean():.4f}, Viterbi IBD share "
+        f"{res.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
+    if dev.type == "cuda":
+        log(f"[{label}] peak torch.cuda.max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{label}] launches {counts}")
+    return counts
+
+
+def run_cli(dev, seed, n_rep=1, ld=False):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
     with numpy (n_rep > 1: that many lockstep restarts, the best
-    replicate's files); exit code and outputs checked."""
-    S, N = 5000, 12
+    replicate's files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the
+    JAX package's warning on stderr); exit code and outputs checked."""
+    S, N = 5000, 40 if ld else 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
         geno = os.path.join(tmp, "in.geno")
@@ -976,9 +1187,11 @@ def run_cli(dev, seed, n_rep=1):
         out = os.path.join(tmp, "run")
         cmd = [sys.executable, "-m", "ngsf_hmm_tpu_torch", "--geno", geno,
                "--pos", pos, "--n_ind", str(N), "--n_sites", str(S),
-               "--freq_est", "1", "--freq", "e", "--indF", "0.1-0.05",
-               "--min_iters", "2", "--max_iters", "3", "--out", out,
-               "--device", dev.type, "--n_rep", str(n_rep)]
+               "--freq_est", "2" if ld else "1", "--freq", "e",
+               "--indF", "0.1-0.05", "--min_iters", "2", "--max_iters", "3",
+               "--out", out, "--device", dev.type, "--n_rep", str(n_rep)]
+        if ld:
+            cmd += ["--e_prob", "2"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                            cwd=os.path.dirname(os.path.abspath(__file__)))
         if r.returncode != 0:
@@ -994,6 +1207,15 @@ def run_cli(dev, seed, n_rep=1):
         if not os.path.getsize(out + ".ibd"):
             fail("CLI .ibd is empty")
         final = [l for l in r.stdout.splitlines() if "Final logLkl" in l][0]
+        if ld:
+            vals = [float(x) for l in open(out + ".indF") for x in l.split()
+                    if x != "NA"]
+            if not np.all(np.isfinite(vals)):
+                fail("CLI --freq_est 2 --e_prob 2: non-finite .indF values")
+            if "CORRECTED two-site haplotype EM" not in " ".join(
+                    r.stderr.split()):
+                fail("CLI --freq_est 2 --e_prob 2: no LD warning on stderr")
+            final += "; LD warning on stderr"
         if n_rep > 1:
             reps = [l for l in r.stdout.splitlines()
                     if l.startswith("Replicate ")]
@@ -1004,7 +1226,9 @@ def run_cli(dev, seed, n_rep=1):
                 fail(f"CLI --n_rep {n_rep}: replicate lines {reps}, .indF "
                      f"header {head}")
             final += f"; {best[0].strip()}"
-        log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}: {final.strip()}")
+        log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}"
+            + (" --freq_est 2 --e_prob 2" if ld else "")
+            + f": {final.strip()}")
 
 
 def main():
@@ -1083,12 +1307,40 @@ def main():
         prep, hk.freq_compact(torch.as_tensor(freq_x).to(dev, f32), prep),
         return_slab=True)
     exact_results = {}
-    check_maf_kernels(torch, dev, prep, p_slab,
-                      Recorder(torch, f"exact shape N={N_x}", exact_results),
-                      Timer(torch, dev), slab=False, p_sites=p_sites,
-                      gl_lin=torch.exp(gl_t))
-    del gl_t, prep, p_sites, p_slab
+    rec_x = Recorder(torch, f"exact shape N={N_x}", exact_results)
+    check_maf_kernels(torch, dev, prep, p_slab, rec_x, Timer(torch, dev),
+                      slab=False, p_sites=p_sites, gl_lin=torch.exp(gl_t))
+    # the LD path's freq M-step below 32 individuals: maf_exact on the
+    # [S, 1, N] row view of the gl planes and the snapped posterior
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+    g0_x, g2_x = mk.gl_rows(gl_t)
+    p_x = check_interv(p_sites).contiguous()
+    e_k = mk.est_maf_rows(g0_x, g2_x, p_x)
+    e_p = mk._exact_plain(g0_x[:, None], g2_x[:, None], p_x[:, None],
+                          False).reshape(-1)
+    err = maf_compare(torch, rec_x, "maf_exact (rows, [S, 1, N] view)",
+                      e_k[None], e_p[None], ["freq"])
+    exact_results["maf_exact"]["max_abs_err"] = max(
+        exact_results["maf_exact"]["max_abs_err"], err)
+    del gl_t, prep, p_sites, p_slab, g0_x, g2_x, p_x
     log(f"[exact shape] done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the row est_maf kernel (maf_macro) against its plain version:
+    # a ragged site count at 40 individuals, the schedule's edge (32),
+    # above 128 (planes recomputed from cache); the LD path's shape below
+    t0 = time.perf_counter()
+    S_m = 333 if args.rehearse else 33_333
+    for N_m in (40, 32, 130):
+        gl_m, dist_m, freq_m, F0_m, a0_m = simulate(S_m, N_m,
+                                                    args.seed + N_m)
+        rows, p_m, _, _ = maf_rows_inputs(torch, dev, gl_m, dist_m, freq_m,
+                                          F0_m, a0_m)
+        check_maf_macro(torch, rows, p_m,
+                        Recorder(torch, f"macro shape N={N_m}", results),
+                        Timer(torch, dev))
+        del gl_m, rows, p_m
+    log(f"[macro shapes] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     gl, dist, freq, F0, a0 = simulate(args.sites, N, args.seed)
@@ -1096,6 +1348,11 @@ def main():
     t0 = time.perf_counter()
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
                   fmad_probe=True)
+    rows, p_m, prep, p_slab = maf_rows_inputs(torch, dev, gl, dist, freq,
+                                              F0, a0)
+    check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
+                    Timer(torch, dev), slab=(prep, p_slab))
+    del rows, p_m, prep, p_slab
     log(f"[main shape] kernels checked in {time.perf_counter() - t0:.1f} s")
 
     # ---- the emission-slab kernels: at the ragged check shape (one
@@ -1130,6 +1387,16 @@ def main():
         "main": run_path(torch, dev, "main", gl, dist, freq, F0, a0, 1,
                          CHAIN_KERNELS + SLAB_KERNELS, writers=True),
     }
+    # ld2 on the first check-shape count of the same sites: its haplotype
+    # EM every iteration is about 15 s at 10^6 sites (plain torch), which
+    # would put the script above half its time limit
+    for label, freq_est, S_ld in (("ld", 1, args.sites),
+                                  ("ld2", 2, S_c)):
+        t0 = time.perf_counter()
+        paths[label] = run_ld_path(
+            torch, dev, label, np.ascontiguousarray(gl[:S_ld]), dist[:S_ld],
+            freq[:S_ld], F0, a0, freq_est)
+        log(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
     del gl
     paths["fixed"] = run_path(torch, dev, "fixed", gl_c, dist_c, freq_c,
                               F0_c, a0_c, 0, CHAIN_KERNELS, writers=True)
@@ -1146,9 +1413,10 @@ def main():
     if dev.type == "cuda" and min(counts.values()) < 1:
         fail(f"a kernel was launched on no path: {counts}")
 
-    # ---- phase 5: the CLI, one run and three lockstep restarts
+    # ---- phase 5: the CLI: one run, three lockstep restarts, the LD path
     run_cli(dev, args.seed)
     run_cli(dev, args.seed, n_rep=3)
+    run_cli(dev, args.seed, ld=True)
 
     if args.rehearse:
         log("rehearsal on the CPU finished; no result is printed for it")

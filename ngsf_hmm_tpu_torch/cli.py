@@ -9,9 +9,11 @@ This package carries one tier: the float32 chain kernels on a single
 device, with the allele frequencies estimated every iteration
 (--freq_est 1, the default as in the reference) or held fixed
 (--freq_est 0), for one run or for --n_rep R lockstep restarts (the
-ngsF-HMM.sh protocol; the best replicate's files are written). It is the
-default for --kernel / --dtype here; the flags of tiers still to be
-ported (--freq_est 2, --e_prob 2, --mesh, --stream_chunk, --checkpoint,
+ngsF-HMM.sh protocol; the best replicate's files are written). One run
+also takes the LD path (--freq_est 2, --e_prob 2), in the corrected form
+of the JAX package (a warning says so). It is the default for --kernel /
+--dtype here; the flags of tiers still to be ported (--freq_est 2 or
+--e_prob other than 1 with --n_rep, --mesh, --stream_chunk, --checkpoint,
 --opt compat, other --kernel / --dtype values, --gl_bf16 1, --profile)
 are parsed and refused with an error.
 
@@ -319,10 +321,9 @@ def _refuse_unported(p):
     if p["kernel"] != "pallas":
         error("main", f"--kernel {p['kernel']} is not ported yet: this "
                       "package runs the fused kernel tier ('pallas') only")
-    if p["freq_est"] == 2:
-        error("main", "--freq_est 2 (the LD path) is not ported yet")
-    if p["e_prob"] != 1:
-        error("main", "--e_prob 2 (the LD path) is not ported yet")
+    if p["n_rep"] > 1 and (p["freq_est"] == 2 or p["e_prob"] != 1):
+        error("main", f"--freq_est {p['freq_est']} / --e_prob {p['e_prob']} "
+                      "with --n_rep is not ported yet")
     if p["opt"] != "speed":
         error("main", "--opt compat is not ported yet")
     if p["gl_bf16"] not in ("0", "auto"):
@@ -445,6 +446,16 @@ def main(argv=None):
             print(f'==> Reading initial frequency values from file "{fspec}".')
         else:
             print(f"==> Setting initial frequency values to: {fspec}")
+    if p["freq_est"] == 2 or p["e_prob"] == 2:
+        warn(
+            "main",
+            "the LD path (--freq_est 2 / --e_prob 2) is non-functional in "
+            "the reference (NaN haplotype frequencies; gen_func.cpp:1160); "
+            "running the CORRECTED two-site haplotype EM instead -- at init "
+            "too (parse_args.cpp:316-321,373-386) -- results will not "
+            "match the (broken) reference. See ngsf_hmm_tpu_torch/ops/"
+            "haplo.py.",
+        )
     # ngsF-HMM.sh multi-restart protocol: replicate r resolves its random
     # inits with GslTaus(seed + r), so the single-run init is not built;
     # replicate 0 draws what it would have drawn. The stacked states sit

@@ -87,7 +87,9 @@ def init_freq(spec, n_sites, rng: GslTaus, gl=None, freq_est=1,
     feeds the HWE est_maf estimate with F = 0 (parse_args.cpp:312-318),
     run in log space at gl's dtype on `device`. Under freq_est == 2 the
     reference instead derives sites >= 2 from pair-EM haplotype
-    frequencies (parse_args.cpp:316-321); that path is not ported.
+    frequencies (parse_args.cpp:316-321) -- here, as in the JAX package,
+    via the corrected two-site EM (ops/haplo.ld_init_freq; the
+    reference's is NaN-broken).
     """
     freq = np.full(n_sites, FREQ_RNG_MIN)
     if spec == "r":
@@ -102,11 +104,11 @@ def init_freq(spec, n_sites, rng: GslTaus, gl=None, freq_est=1,
 
         if gl is None:
             raise ValueError("freq init 'e' needs genotype likelihoods")
-        if freq_est == 2:
-            raise NotImplementedError(
-                "freq init 'e' under freq_est 2 "
-                "(ROADMAP queue 1: 'The LD path')")
         gl = torch.as_tensor(gl).to(_device(device))
+        if freq_est == 2:
+            from ..ops.haplo import ld_init_freq
+
+            return ld_init_freq(gl).cpu().numpy()
         zeros = torch.zeros(gl.shape[:2], dtype=gl.dtype, device=gl.device)
         return est_maf(gl, zeros).cpu().numpy()
     if os.path.isfile(spec):

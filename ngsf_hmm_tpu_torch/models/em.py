@@ -7,14 +7,20 @@ optimises ALL individuals simultaneously with a batched box-constrained
 L-BFGS on analytic gradients, and the convergence bookkeeping
 (EM.cpp:56,75-97) is replicated exactly on the host (models/driver.py).
 
-This module carries the single-device kernel routes: float32, the freq
-M-step on the est_maf kernels of ops/maf_kernels.py (freq_est 1, the
-default) or allele frequencies held fixed (freq_est 0), e_prob_calc 1.
-One replicate runs the fused route (models/hmm_kernels.py, emissions
-built in-kernel from (gl, freq)); R > 1 replicates flattened into the
-column axis (models/restart.py) run the emission-slab route
-(models/hmm_kernels_v1.py). Every other option value raises
-NotImplementedError naming the ROADMAP item that will bring it.
+This module carries the single-device kernel routes, float32:
+  - the fused route (models/hmm_kernels.py, emissions built in-kernel from
+    (gl, freq)): one run, e_prob_calc 1, freq_est 1 (the default; the
+    freq M-step on the est_maf kernels of ops/maf_kernels.py) or 0
+    (allele frequencies held fixed);
+  - the emission-slab route (models/hmm_kernels_v1.py), which reads
+    state.e_prob: R > 1 replicates flattened into the column axis
+    (models/restart.py; freq_est 0/1, e_prob_calc 1), and one run on the
+    LD path (e_prob_calc 2, LD emissions; freq_est 2, the two-site
+    haplotype EM of ops/haplo.py; or both), where e_prob is not the
+    (gl, freq) formula. As in the JAX package, e_prob_calc 0 takes that
+    route too, with the plain emissions at init.
+Every other option value raises NotImplementedError naming the ROADMAP
+item that will bring it.
 
 State layout (site-major, 0-based):
   gl      [S, N, 3]  normalised log genotype likelihoods (read-only)
@@ -33,8 +39,9 @@ import torch
 
 from ..ops import maf_kernels
 from ..ops.emissions import calc_emission, emission_probs_linear
-from ..ops.hwe import check_interv
-from ..ops.maf import macro_schedule
+from ..ops.haplo import haplo_freq, ld_emissions
+from ..ops.hwe import calc_hwe, check_interv, post_prob
+from ..ops.maf import est_maf, macro_schedule
 from ..utils.constants import ALPHA_MAX, ALPHA_MIN, F_MAX, F_MIN
 from . import hmm_kernels, hmm_kernels_v1
 from .hmm import viterbi
@@ -105,19 +112,16 @@ def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
     """Raise for every option value this package does not carry yet."""
     if n_rep < 1:
         raise ValueError(f"n_rep must be >= 1, got {n_rep}")
+    if freq_est not in (0, 1, 2):
+        raise ValueError(f"freq_est must be 0, 1 or 2, got {freq_est}")
+    if e_prob_calc not in (0, 1, 2):
+        raise ValueError(f"e_prob_calc must be 0, 1 or 2, got {e_prob_calc}")
     if n_rep > 1 and (freq_est not in (0, 1) or e_prob_calc != 1):
         # the JAX package runs these replicates vmapped on its linear
         # tier (models/restart.py:91-97), which is not ported
         raise NotImplementedError(
             f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
-            f"{e_prob_calc} (ROADMAP queue 1: 'The LD path', "
-            "'models/hmm_blocked.py')")
-    if freq_est not in (0, 1):
-        raise NotImplementedError(
-            f"freq_est {freq_est} (ROADMAP queue 1: 'The LD path')")
-    if e_prob_calc != 1:
-        raise NotImplementedError(
-            f"e_prob_calc {e_prob_calc} (ROADMAP queue 1: 'The LD path')")
+            f"{e_prob_calc} (ROADMAP queue 1: 'models/hmm_blocked.py')")
     if numerics != "pallas":
         raise NotImplementedError(
             f"numerics {numerics!r} (ROADMAP queue 1: 'The f64 scan tier' / "
@@ -146,18 +150,28 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
                dtype=torch.float32) -> EMState:
     """Initial EM state with emissions from the initial freqs
     (parse_args.cpp:370-387). gl/freq0/indF0/alpha0: tensors or numpy
-    arrays; everything is moved to `device` in `dtype`."""
-    if e_prob_calc != 1:
-        _refuse(e_prob_calc=e_prob_calc)
+    arrays; everything is moved to `device` in `dtype`.
+
+    e_prob_calc == 2: sites >= 1 get LD-conditioned pair emissions
+    (parse_args.cpp:373-386) from the corrected pair EM seeded with the
+    initial freqs (JAX init_state; the reference's own init call NaNs,
+    gen_func.cpp:1160). Under freq_est 0/1 the loop recomputes only site
+    0's emission, so these stay for the whole run."""
+    _refuse(e_prob_calc=e_prob_calc)
     dev = _device(device)
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
     freq0 = torch.as_tensor(freq0).to(device=dev, dtype=dtype)
     S, N = gl.shape[0], gl.shape[1]
+    e_prob = calc_emission(gl, freq0[:, None])  # [S, N, 2]
+    if e_prob_calc == 2:
+        hap = haplo_freq(gl[:-1], gl[1:], freq0[:-1], freq0[1:],
+                         compat=False)  # [S-1, 4]
+        e_prob[1:] = ld_emissions(hap, gl, freq0)
     return EMState(
         freq=freq0,
         indF=torch.as_tensor(indF0).to(device=dev, dtype=dtype),
         alpha=torch.as_tensor(alpha0).to(device=dev, dtype=dtype),
-        e_prob=calc_emission(gl, freq0[:, None]),
+        e_prob=e_prob,
         p_ibd=torch.zeros((S, N), dtype=dtype, device=dev),
         ind_lkl=torch.full((N,), -torch.inf, dtype=dtype, device=dev),
     )
@@ -168,7 +182,9 @@ def in_loop_emission_form(freq_est, numerics="pallas", site_sharded=False):
     "linear" = ``log(ops.emissions.emission_probs_linear(...))``, "log" =
     ``ops.emissions.calc_emission``. Whoever rebuilds emissions from
     params alone must use exactly this form. freq_est 0 freezes the init
-    form ("log"); freq_est 1 on the fused tier recomputes linearly."""
+    form ("log"); freq_est 1 on the fused tier recomputes linearly;
+    freq_est 2 recomputes via calc_emission (with e_prob_calc 2, sites
+    >= 1 carry the LD pair emissions: JAX em.py:153-165)."""
     if freq_est == 1 and (site_sharded or numerics in ("linear", "pallas")):
         return "linear"
     return "log"
@@ -239,12 +255,17 @@ def em_iteration(
     (models/hmm_kernels_v1.py); prep_slabs is then the (g0, g2) gl slab
     pair of the freq M-step (None under freq_est 0) and defer_* do not
     apply. Requires freq_est in (0, 1) and e_prob_calc == 1.
+
+    One run with e_prob_calc != 1 or freq_est 2 (the LD path) takes the
+    emission-slab route too, with L = N columns (_em_iteration_v1);
+    prep_slabs is then the (g0, g2) pair of linear gl planes [S, N] of
+    est_maf_rows (freq_est 1; None otherwise) and defer_* do not apply.
     """
     _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size, gl_bf16)
-    if n_rep > 1:
-        st, stats, slabs, mem = _em_iteration_flat(
-            gl, dist, state, n_rep, freq_est, indF_fixed, alpha_fixed,
-            prep_slabs, opt_memory)
+    if n_rep > 1 or e_prob_calc != 1 or freq_est == 2:
+        st, stats, slabs, mem = _em_iteration_v1(
+            gl, dist, state, n_rep, freq_est, e_prob_calc, indF_fixed,
+            alpha_fixed, prep_slabs, opt_memory)
         return ((st, stats) + ((slabs,) if return_prep else ())
                 + ((mem,) if return_opt else ()))
     S, N = gl.shape[0], gl.shape[1]
@@ -347,26 +368,34 @@ def _mstep_indF_alpha(state, indF_fixed, alpha_fixed, vag, opt_memory,
     return x_opt[:, 0], x_opt[:, 1], opt_iters, opt_mem
 
 
-def _em_iteration_flat(gl, dist, state, n_rep, freq_est, indF_fixed,
-                       alpha_fixed, gl_slabs, opt_memory):
-    """em_iteration with R = n_rep > 1 replicates flattened into the
-    column axis (JAX em.py:363-375, :451-463, :527-542). Returns (state,
-    stats, gl_slabs, opt_memory).
+def _em_iteration_v1(gl, dist, state, n_rep, freq_est, e_prob_calc,
+                     indF_fixed, alpha_fixed, gl_consts, opt_memory):
+    """em_iteration on the emission-slab route (JAX em.py:363-375,
+    :451-463): R = n_rep > 1 replicates flattened into the column axis
+    (freq M-step :527-542), or one run on the LD path (:546-620). Returns
+    (state, stats, gl_consts, opt_memory).
 
     E-step: the emission-slab chain kernels on exp(state.e_prob), then the
-    check_interv snap and fwbw_maxdiff per replicate. (F, alpha) M-step:
-    L-BFGS over the R*N rows, every evaluation one transfer + tangent
-    stream (the JAX route has no E-step/M-step merge here). freq M-step:
-    one est_maf per replicate on the gl slabs at this geometry and the
-    replicate's contiguous cut of the posterior slab, SNAPPED as the JAX
-    route reads state.p_ibd: est_maf_slab where macro_schedule(N) gives a
-    schedule (keyed on N, as the JAX vmap sees [S, N]), else
-    est_maf_exact(snap=True); then the replicate's emissions, linear ->
-    log, written back into its columns."""
+    check_interv snap and fwbw_maxdiff (per replicate when R > 1). (F,
+    alpha) M-step: L-BFGS over the R*N rows, every evaluation one transfer
+    + tangent stream (the JAX route has no E-step/M-step merge here).
+    The emission slabs are rebuilt from state.e_prob every iteration, as
+    in the JAX package.
+
+    Replicates: one est_maf per replicate on the gl slabs at this geometry
+    (gl_consts) and the replicate's contiguous cut of the posterior slab,
+    SNAPPED as the JAX route reads state.p_ibd: est_maf_slab where
+    macro_schedule(N) gives a schedule (keyed on N, as the JAX vmap sees
+    [S, N]), else est_maf_exact(snap=True); then the replicate's
+    emissions, linear -> log, written back into its columns.
+
+    One run: _freq_step_ld."""
     S, N = gl.shape[0], gl.shape[1]
     R, L = n_rep, n_rep * N
     dtype = gl.dtype
-    if tuple(state.indF.shape) != (L,) or tuple(state.freq.shape) != (R, S):
+    flat = n_rep > 1
+    if flat and (tuple(state.indF.shape) != (L,)
+                 or tuple(state.freq.shape) != (R, S)):
         raise ValueError(
             f"n_rep {R}: expected a flattened state (indF [{L}], freq "
             f"[{R}, {S}]), got indF {tuple(state.indF.shape)}, freq "
@@ -379,7 +408,8 @@ def _em_iteration_flat(gl, dist, state, n_rep, freq_est, indF_fixed,
         state.indF, state.alpha, prep, return_slab=True)
     p_ibd = check_interv(p_raw.to(dtype))
     del p_raw
-    fwbw_maxdiff = torch.abs(ll_f - ll_b).reshape(R, N).amax(1)
+    fwbw = torch.abs(ll_f - ll_b)
+    fwbw_maxdiff = fwbw.reshape(R, N).amax(1) if flat else torch.max(fwbw)
     ind_lkl = ll_f.to(dtype)
 
     # ---- M-step 1: per-individual (F, alpha) (EM.cpp:189-206)
@@ -389,15 +419,19 @@ def _em_iteration_flat(gl, dist, state, n_rep, freq_est, indF_fixed,
         opt_memory)
     del prep
 
-    # ---- M-step 2: per-replicate freq + emission recompute (EM.cpp:210-272)
+    # ---- M-step 2: per-site freq + emission recompute (EM.cpp:210-272)
     if freq_est == 0:
         freq, e_prob = state.freq, state.e_prob
+    elif not flat:
+        del p_slab
+        freq, e_prob, gl_consts = _freq_step_ld(
+            gl, state, p_ibd, freq_est, e_prob_calc, gl_consts)
     else:
         gl_lin = torch.exp(gl)
-        if gl_slabs is None:
-            gl_slabs = hmm_kernels.gl_slabs(gl_lin, bs, nb)
+        if gl_consts is None:
+            gl_consts = hmm_kernels.gl_slabs(gl_lin, bs, nb)
         # (est_maf reads no distances: the prep's dc stays None)
-        prep2 = hmm_kernels.make_prep2(*gl_slabs, None, S, N, bs, nb)
+        prep2 = hmm_kernels.make_prep2(*gl_consts, None, S, N, bs, nb)
         macro = macro_schedule(N) is not None
         freq = torch.empty((R, S), dtype=dtype, device=gl.device)
         e_prob = torch.empty_like(state.e_prob)
@@ -412,8 +446,49 @@ def _em_iteration_flat(gl, dist, state, n_rep, freq_est, indF_fixed,
                 emission_probs_linear(gl_lin, freq[r][:, None])).to(dtype)
         del gl_lin
     new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ind_lkl)
-    return (new_state, IterStats(fwbw_maxdiff, opt_iters), gl_slabs,
+    return (new_state, IterStats(fwbw_maxdiff, opt_iters), gl_consts,
             opt_mem)
+
+
+def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
+    """The freq M-step of one run on the emission-slab route; returns
+    (freq, e_prob, gl_rows).
+
+    freq_est 1 (JAX em.py:559-565, :582-588): est_maf_rows on the linear
+    gl planes gl_rows (built here on first use; run constants) and the
+    snapped posterior; the reference's outer gate (EM.cpp:252
+    `if(e_prob_calc == 1 || s == 1)`) then recomputes only site 0's
+    emission, with calc_emission.
+
+    freq_est 2 (JAX :589-620): the LD haplotype path. Each adjacent pair's
+    two-site EM starts from the previous iteration's freqs (Jacobi, where
+    the reference goes site by site) on the genotype posteriors under
+    calc_hwe(freq, p_ibd); site 0 takes est_maf (log space, EM.cpp:243);
+    site s >= 1 takes hap[1] + hap[3] of pair (s-1, s). Emissions: site
+    0 plain, sites >= 1 the LD pair emissions (e_prob_calc 2) or plain
+    (otherwise), both with calc_emission's log form."""
+    if freq_est == 1:
+        if gl_rows is None:
+            gl_rows = maf_kernels.gl_rows(gl)
+        freq = maf_kernels.est_maf_rows(*gl_rows, p_ibd).to(gl.dtype)
+        e_prob = state.e_prob.clone()
+        e_prob[0] = calc_emission(gl[0], freq[0])
+        return freq, e_prob, gl_rows
+    prior = calc_hwe(state.freq[:, None], p_ibd)  # [S, N, 3] log
+    pp = post_prob(gl, prior)
+    del prior
+    hap = haplo_freq(pp[:-1], pp[1:], state.freq[:-1], state.freq[1:],
+                     compat=False)  # [S-1, 4]
+    del pp
+    freq0 = est_maf(gl[0:1], p_ibd[0:1])
+    freq = torch.cat([freq0, hap[:, 1] + hap[:, 3]])
+    e_prob = torch.empty_like(state.e_prob)
+    e_prob[0:1] = calc_emission(gl[0:1], freq[0:1, None])
+    if e_prob_calc == 2:
+        e_prob[1:] = ld_emissions(hap, gl, freq)
+    else:
+        e_prob[1:] = calc_emission(gl[1:], freq[1:, None])
+    return freq, e_prob, gl_rows
 
 
 def restore_opt_memory(raw, n_cols, dtype, m=None, device="cuda"):
@@ -478,19 +553,23 @@ def run_em(
     state = EMState(*(t.to(dev) for t in state))
     S, N = gl.shape[0], gl.shape[1]
 
-    # the gl slabs + dist compact are threaded across iterations
+    # the run constants are threaded across iterations: the gl slabs +
+    # dist compact (fused route) or the linear gl planes of est_maf_rows
+    # (the LD path's freq M-step)
     prep_holder = {"slabs": None}
     # the warm-started M-step's curvature memory, threaded likewise
     warm = opts.warm_mstep and not (opts.indF_fixed and opts.alpha_fixed)
     opt_holder = {"mem": opt_memory if warm else None}
-    # nothing in the loop reads state.e_prob (the kernels build emissions
-    # from (gl, freq)) or the unpacked posterior (est_maf reads the raw
-    # slab): defer both to loop exit. The posterior rebuild needs the
-    # final iteration's PRE-update params (the E-step runs on the
-    # entering state), tracked per step below. verbose >= 7 dumps
-    # per-iteration state from the trace hook: keep both live there.
-    defer = opts.freq_est == 1 and opts.verbose < 7
-    defer_p = opts.verbose < 7
+    # on the fused route nothing in the loop reads state.e_prob (the
+    # kernels build emissions from (gl, freq)) or the unpacked posterior
+    # (est_maf reads the raw slab): defer both to loop exit. The posterior
+    # rebuild needs the final iteration's PRE-update params (the E-step
+    # runs on the entering state), tracked per step below. verbose >= 7
+    # dumps per-iteration state from the trace hook: keep both live there.
+    # The emission-slab route (the LD path) reads both: nothing deferred.
+    fused = opts.e_prob_calc == 1 and opts.freq_est != 2
+    defer = fused and opts.freq_est == 1 and opts.verbose < 7
+    defer_p = fused and opts.verbose < 7
     prev_params = {"v": None}
 
     def _rebuild_pibd(st):

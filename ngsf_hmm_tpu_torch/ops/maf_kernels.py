@@ -3,13 +3,19 @@
 Inside the EM loop the gl slabs (g0, g2; g1 = 1 - g0 - g2) are resident
 run constants and the posterior comes out of the fw_post kernel in the
 same [bs, nb, N] layout, so the damped fixed point (ops/maf.py) runs
-directly on those. Four CUDA kernels (``csrc/maf_*.cu``), one warp per
+directly on those. Five CUDA kernels (``csrc/maf_*.cu``), one warp per
 site (one thread per site for the window):
 
   maf_state_grad  K0 real damped passes, then (cn, cd, dcn, dcd)
   maf_sums_grad   (cn, cd, dcn, dcd) at a given freq
   maf_window      M virtual passes on the linearised per-site model
   maf_exact       the exact fixed point, up to ITER_MAX + 1 passes
+  maf_macro       the whole macro schedule in one launch, on [S, N] rows
+
+The emission-slab route of a single run (the LD path) has no gl slabs: its
+freq M-step, ``est_maf_rows``, reads the linear gl planes g0 / g2 [S, N]
+(run constants) and the snapped posterior [S, N] as rows of N cells, with
+maf_macro, or maf_exact on the [S, 1, N] row view below 32 individuals.
 
 Each kernel has a wrapper that launches it for CUDA tensors and takes the
 plain PyTorch version beside it only for CPU tensors. The plain versions
@@ -21,8 +27,11 @@ rounding flips the ``|prev - freq| > EPSILON`` test of a site, to one
 damped step of that site (about 1e-5).
 
 Per-site state and outputs are [rows, bs, nb], site s = j * bs + r at
-[:, r, j]. ``est_maf_slab`` and ``est_maf_exact`` return freq [S].
+[:, r, j]. ``est_maf_slab``, ``est_maf_exact`` and ``est_maf_rows``
+return freq [S].
 """
+
+import ctypes
 
 import torch
 
@@ -176,10 +185,11 @@ def _k_maf_sums_grad(g0, g2, p, fq):
 # ---------------------------------------------------------------------------
 
 
-def _virtual_window_plain(st, grads, passes0, M_r, tally=None):
-    """Plain version of csrc/maf_window.cu: st / grads [4, bs, nb] ->
-    [4, bs, nb]. tally: as in _state_grad_plain."""
-    PLAIN_CALLS["maf_window"] += 1
+def _window_steps(st, grads, passes0, M_r, tally=None):
+    """M_r virtual passes from st = (freq, num, den, active) on the model
+    linearised at st's freq by grads = (cn, cd, dcn, dcd); the arithmetic
+    of csrc/maf_window.cu and of maf_macro.cu's windows. Returns the
+    advanced st tuple. tally: as in _state_grad_plain."""
     cn0, cd0, dcn, dcd = grads
     st = tuple(st)
     f0 = st[0]
@@ -189,7 +199,14 @@ def _virtual_window_plain(st, grads, passes0, M_r, tally=None):
         df = st[0] - f0
         st = _advance_plain(st, cn0 + dcn * df, cd0 + dcd * df,
                             passes0 + k + 1 <= ITER_MAX)
-    return torch.stack(st)
+    return st
+
+
+def _virtual_window_plain(st, grads, passes0, M_r, tally=None):
+    """Plain version of csrc/maf_window.cu: st / grads [4, bs, nb] ->
+    [4, bs, nb]. tally: as in _state_grad_plain."""
+    PLAIN_CALLS["maf_window"] += 1
+    return torch.stack(_window_steps(st, grads, passes0, M_r, tally))
 
 
 def _k_maf_window(st, grads, passes0, M_r):
@@ -280,6 +297,61 @@ def _k_maf_exact(g0, g2, p, snap):
 
 
 # ---------------------------------------------------------------------------
+# the whole macro schedule on rows
+# ---------------------------------------------------------------------------
+
+
+def _macro_rows_plain(g0, g2, p, K0, Ms, tally=None):
+    """Plain version of csrc/maf_macro.cu: g0 / g2 / p [S, N] -> freq [S].
+    K0 real passes, then per round M_r in Ms one gradient evaluation and
+    M_r virtual passes (kernel A, then windows and kernel B, on rows).
+    tally: a dict that receives, under "pass", "grad" and "step", the
+    number of sites still active at each real pass, gradient evaluation
+    and virtual pass (the work this input needs)."""
+    PLAIN_CALLS["maf_macro"] += 1
+    count = (lambda kind, st: tally[kind].append(st[3].sum())) if (
+        tally is not None) else (lambda kind, st: None)
+    q, T = _planes_plain(g0, g2, p)
+    st = _init_state(g0.shape[:1], g0.device)
+    for k in range(K0):
+        count("pass", st)
+        st = _advance_plain(st, *_sums_plain(q, T, st[0], False),
+                            k + 1 <= ITER_MAX)
+    passes = K0
+    for M_r in Ms:
+        count("grad", st)
+        st = _window_steps(st, _sums_plain(q, T, st[0], True), passes, M_r,
+                           None if tally is None else tally["step"])
+        passes += M_r
+    return st[0]
+
+
+def _k_maf_macro(g0, g2, p, K0, Ms):
+    """The macro-stepped est_maf per site on [S, N] rows (g0, g2 linear
+    gl planes, p the posterior as read): freq [S]. K0 real passes, then
+    for each M_r in Ms (ops/maf.macro_rounds) one gradient evaluation and
+    M_r virtual passes, all in one launch.
+
+    Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py:_run_macro.
+    Bound about equally by bytes (three [S, N] planes read once) and by
+    operations (the passes and gradient rounds over every cell); the
+    cells' planes and the per-site state stay in registers through the
+    schedule."""
+    if not g0.is_cuda:
+        return _macro_rows_plain(g0, g2, p, K0, Ms)
+    S, _, N = _check_slabs("maf_macro", g0[:, None], g2[:, None], p[:, None])
+    Ms = tuple(int(m) for m in Ms)
+    out = torch.empty((S,), dtype=_f32, device=g0.device)
+    rc = cuda_lib.load().ngsf_maf_macro(
+        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), S, N,
+        int(K0), (ctypes.c_int * max(1, len(Ms)))(*Ms), len(Ms),
+        cuda_lib.stream())
+    cuda_lib.check(rc, "maf_macro")
+    LAUNCHES["maf_macro"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # public functions (freq [S], as in the JAX package)
 # ---------------------------------------------------------------------------
 
@@ -330,3 +402,31 @@ def est_maf_exact(prep2, p_slab, snap=True):
     [S] float32. Serves N < 32, where est_maf_slab has no schedule."""
     return _site_vector(
         _k_maf_exact(prep2["g0"], prep2["g2"], p_slab, snap), prep2)
+
+
+def gl_rows(gl):
+    """[S, N, 3] log GLs -> the linear planes (g0, g2), each [S, N]
+    contiguous float32: est_maf_rows' run constants (g1 = 1 - g0 - g2)."""
+    return (torch.exp(gl[..., 0]).to(_f32).contiguous(),
+            torch.exp(gl[..., 2]).to(_f32).contiguous())
+
+
+def est_maf_rows(g0, g2, p_ibd, macro=True):
+    """Per-site MAF from the linear gl planes g0 / g2 [S, N] (gl_rows) and
+    the snapped IBD posterior p_ibd [S, N] (JAX
+    maf_pallas.est_maf_pallas(gl_tiles, p_ibd, S, macro)). Returns freq [S]
+    float32.
+
+    macro: True resolves the schedule with macro_schedule(N), a (K0, M)
+    pair overrides. With a schedule, maf_macro runs it in one launch;
+    without one (N < 32, where JAX runs _run), maf_exact runs on the
+    [S, 1, N] row view, unsnapped, because p_ibd is already snapped."""
+    S, N = g0.shape
+    p_ibd = p_ibd.to(_f32).contiguous()
+    if macro is True:
+        macro = macro_schedule(N)
+    if not macro:
+        return _k_maf_exact(g0.reshape(S, 1, N), g2.reshape(S, 1, N),
+                            p_ibd.reshape(S, 1, N), False).reshape(S)
+    K0, M = macro
+    return _k_maf_macro(g0, g2, p_ibd, K0, macro_rounds(K0, M))

@@ -38,6 +38,7 @@ SOURCES = (
     "maf_sums_grad.cu",
     "maf_window.cu",
     "maf_exact.cu",
+    "maf_macro.cu",
 )
 HEADERS = ("hmm_common.cuh", "maf_common.cuh")
 # -fmad=false: the grad kernel's primal rows must equal the transfer
@@ -71,6 +72,7 @@ _SIGNATURES = {
     "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
     "ngsf_maf_exact": [_P] * 4 + [_L, _I, _I, _P],
+    "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P, _I, _P],
 }
 
 

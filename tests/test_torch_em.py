@@ -108,7 +108,6 @@ def test_run_em_invariants_and_memory(runs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(freq_est=2), dict(e_prob_calc=2),
     dict(numerics="log"), dict(numerics="linear"), dict(block_size="auto"),
     dict(gl_bf16=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
@@ -125,7 +124,48 @@ def test_unsupported_iteration_arguments_raise(runs):
         t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2, freq_est=2)
     with pytest.raises(ValueError, match="flattened state"):
         t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        a = runs["arrays"]
-        t_em.init_state(runs["gl"], a["freq"], a["indF"], a["alpha"],
-                        e_prob_calc=2, device="cpu")
+    # e_prob_calc 2 runs: site 0 keeps the plain emission, the others
+    # carry the LD pair emissions (against JAX: tests/test_torch_haplo.py)
+    a = runs["arrays"]
+    st2 = t_em.init_state(runs["gl"], a["freq"], a["indF"], a["alpha"],
+                          e_prob_calc=2, device="cpu")
+    st1 = t_em.init_state(runs["gl"], a["freq"], a["indF"], a["alpha"],
+                          device="cpu")
+    assert torch.equal(st2.e_prob[0], st1.e_prob[0])
+    assert torch.isfinite(st2.e_prob).all()
+    assert float((st2.e_prob[1:] - st1.e_prob[1:]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("kw", [
+    dict(freq_est=2), dict(e_prob_calc=2), dict(e_prob_calc=0),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_ld_modes_run(runs, kw):
+    """The LD path's options on the emission-slab route, 3 iterations on
+    the fixture's data; what each recomputes of the emissions. freq_est 2
+    (e_prob_calc 1): every site's emission from the haplotype-EM freqs
+    with calc_emission; e_prob_calc 2 / 0 (freq_est 1): only site 0's
+    (EM.cpp:252), the others stay as init_state made them (LD pair
+    emissions under 2, plain under 0). Against JAX: tests/test_torch_ld.py.
+    """
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+
+    a = runs["arrays"]
+    ep = kw.get("e_prob_calc", 1)
+    st0 = t_em.init_state(runs["gl"], a["freq"], a["indF"], a["alpha"],
+                          e_prob_calc=ep, device="cpu")
+    res = t_em.run_em(runs["gl"], runs["dist"], st0,
+                      t_em.EMOptions(**LOOP, **kw), device="cpu")
+    st = res.state
+    assert res.n_iters == 3 and np.all(np.isfinite(res.lkl_history))
+    assert res.path.shape == (S, N) and np.isin(res.path, (0, 1)).all()
+    assert np.all((st.freq.numpy() >= 0) & (st.freq.numpy() <= 1))
+    assert not torch.equal(st.freq, st0.freq)
+    gl = torch.as_tensor(runs["gl"])
+    want = calc_emission(gl, st.freq[:, None])
+    if kw.get("freq_est") == 2:
+        np.testing.assert_allclose(st.e_prob.numpy(), want.numpy(),
+                                   atol=1e-6)
+    else:
+        assert torch.equal(st.e_prob[1:], st0.e_prob[1:])
+        np.testing.assert_allclose(st.e_prob[0].numpy(), want[0].numpy(),
+                                   atol=1e-6)

@@ -123,8 +123,13 @@ def test_readers_and_init_equal_jax_package(arrays, tmp_path):
     assert isinstance(fe, np.ndarray) and fe.dtype == np.float64
     np.testing.assert_allclose(fe, j_init_freq("e", S, rj, gl=arrays["gl"]),
                                rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_freq("e", S, rt, gl=arrays["gl"], freq_est=2, device="cpu")
+    # under freq_est 2: site 0 from est_maf, the rest from the pair EM
+    # (ops/haplo.ld_init_freq), float64, rtol 1e-10
+    fe2 = init_freq("e", S, rt, gl=arrays["gl"], freq_est=2, device="cpu")
+    np.testing.assert_allclose(
+        fe2, j_init_freq("e", S, rj, gl=arrays["gl"], freq_est=2),
+        rtol=1e-10)
+    assert fe2[0] == fe[0] and np.abs(fe2[1:] - fe[1:]).max() > 0
     with pytest.raises(ValueError, match="genotype likelihoods"):
         init_freq("e", S, rt, device="cpu")
 
@@ -176,13 +181,17 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--freq_est", "2"], ["--freq_est", "0", "--mesh", "ind=2"],
+    # the LD path runs (tests/test_torch_ld.py); with replicates it stays
+    # refused
+    ["--n_rep", "2", "--freq_est", "2"],
+    ["--freq_est", "0", "--mesh", "ind=2"],
     ["--freq_est", "0", "--kernel", "scan"],
     # replicates run; with a checkpoint they stay refused
     ["--freq_est", "0", "--checkpoint", "ck", "--n_rep", "2"],
     ["--freq_est", "0", "--opt", "compat"],
     ["--freq_est", "0", "--stream_chunk", "10"],
-    ["--freq_est", "0", "--dtype", "float64"], ["--e_prob", "2"],
+    ["--freq_est", "0", "--dtype", "float64"],
+    ["--n_rep", "2", "--e_prob", "2"],
 ], ids=lambda e: "".join(e[-2:]).lstrip("-"))
 def test_cli_refuses_unported_flags(extra, capsys):
     """Flags of later slices are parsed and refused before any input is
