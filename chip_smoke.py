@@ -16,13 +16,24 @@ needs one CUDA device and nvcc. It
      held at the ragged shape and at the restart path's shape; the row
      est_maf kernel (maf_macro) at 33,333 sites x 40, 32 and 130
      individuals and at the LD path's shape, and maf_exact on the row view
-     at 20 individuals,
-  4. drives six paths, each with the launch counts set to 0 just before
+     at 20 individuals; the bfloat16 gl exports ("_bf16") of the stream
+     and slab est_maf kernels at the main path's shape, on bfloat16 slabs
+     of the same gl; the one-launch slab est_maf (maf_macro_slab, float32
+     and bfloat16 slabs) at the main path's shape and at the maf_macro
+     shapes, also against est_maf_slab,
+  4. drives seven paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
        main     1,000,000 sites x 100 individuals, float32, freq_est 1 (the
                 default: E-step, (F, alpha) M-step, freq M-step on the
-                macro-stepped est_maf kernels), with the writers,
+                macro-stepped est_maf kernels), with the writers; at its
+                end est_maf_slab and macro_slab on one posterior slab at
+                the final parameters,
+       bf16     the main path's data and options with bfloat16 gl slabs
+                (EMOptions(gl_bf16=True), the bfloat16 exports only), no
+                writers, the same est_maf_slab / macro_slab step at its
+                end; its final state held against main's at the JAX
+                package's bf16 envelopes,
        fixed    200,003 x 100, freq_est 0 (frequencies held fixed), with
                 the writers,
        exact    200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
@@ -36,8 +47,9 @@ needs one CUDA device and nvcc. It
                 kernels and maf_macro every iteration), no writers,
        ld2      the first 200,003 sites of that data with --freq_est 2
                 --e_prob 2 (the haplotype EM every iteration), no writers,
-  5. runs the CLI three times at a small size (--freq e, freq_est 1; once
-     more with --n_rep 3; once with --freq_est 2 --e_prob 2).
+  5. runs the CLI four times at a small size (--freq e, freq_est 1; once
+     more with --n_rep 3; once with --freq_est 2 --e_prob 2; once with
+     --gl_bf16 1).
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launches summed over the paths and per path, its error against the
@@ -75,6 +87,10 @@ LL_RTOL = 2e-6   # log-likelihoods
 MAF_RTOL = 2e-5
 MAF_FREQ_ATOL = 2e-5
 MAF_FLIP_SHARE = 1e-3  # most sites that may stop at another pass
+# bfloat16 gl slabs against float32 ones, whole runs: the JAX package's
+# input-noise envelopes (tests/test_bf16.py:87, :111-114)
+BF16_FREQ_ATOL = 3e-3
+BF16_LL_RTOL = 5e-4
 
 # Float operations per (site, lane), counted from the CUDA sources
 # (emission prologue 25 on the gl slabs, none on the emission slabs;
@@ -131,6 +147,9 @@ KERNELS = {
                   "ngsf_hmm_tpu/ops/maf_pallas.py:85"),
     "maf_macro": ("ngsf_hmm_tpu_torch/csrc/maf_macro.cu",
                   "ngsf_hmm_tpu/ops/maf_pallas.py:167"),
+    # maf_macro.cu on the [bs * nb, N] view of the gl slabs
+    "maf_macro_slab": ("ngsf_hmm_tpu_torch/csrc/maf_macro.cu",
+                       "ngsf_hmm_tpu/ops/maf_pallas.py:395"),
     # the emission-slab instantiations of the four stream templates
     "block_transfer_grad_v1": (
         "ngsf_hmm_tpu_torch/csrc/block_transfer_grad.cu",
@@ -148,6 +167,12 @@ CHAIN_KERNELS = ("block_transfer_grad", "bw_sites", "fw_post",
                  "block_transfer", "combine_blocks", "viterbi")
 SLAB_KERNELS = ("maf_state_grad", "maf_sums_grad", "maf_window")
 V1_KERNELS = tuple(k + "_v1" for k in STREAM_KERNELS)
+# the kernels that read gl slabs; each has a bfloat16 export ("_bf16")
+GL_KERNELS = STREAM_KERNELS + ("maf_state_grad", "maf_sums_grad",
+                               "maf_macro_slab")
+BF16_KERNELS = tuple(k + "_bf16" for k in GL_KERNELS)
+for _k in GL_KERNELS:
+    KERNELS[_k + "_bf16"] = KERNELS[_k]
 
 
 def log(msg):
@@ -280,16 +305,22 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
     `prep` and the raw posterior slab `p_slab` (fw_post's output, so exact
     1.0 posteriors occur). slab=False: the exact kernel only (no macro
     schedule below 32 individuals). p_sites / gl_lin: also hold the public
-    functions against ops/maf.est_maf on the [S, N] arrays."""
+    functions against ops/maf.est_maf on the [S, N] arrays. On bfloat16
+    slabs kernels A and B are recorded as their "_bf16" exports, the
+    window (the same kernel) is checked but not recorded again, and the
+    exact kernel, which reads float32 gl only, is left out."""
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
     from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     g0, g2 = prep["g0"], prep["g2"]
+    sfx = cuda_lib.gl_suffix(g0, g2, rec.label)
     bs, nb, N = g0.shape
     sites = bs * nb
     cells = sites * N
     slab_b = cells * 4
+    gl_b = 2 * cells * g0.element_size()  # the two gl slabs
     fc = FLOPS_CELL
     total = lambda tally: float(torch.stack(tally).sum())
 
@@ -302,10 +333,11 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
         a_p, pms = timer(lambda: mk._state_grad_plain(g0, g2, p_slab, K0,
                                                       tally),
                          reps=1, warm=0)
-        err = maf_compare(torch, rec, "maf_state_grad", a_k, a_p,
+        err = maf_compare(torch, rec, "maf_state_grad" + sfx, a_k, a_p,
                           ["freq", "num", "den", "active", "cn", "cd", "dcn",
                            "dcd"])
-        rec.record("maf_state_grad", err, ms, pms, 3 * slab_b + 8 * sites * 4,
+        rec.record("maf_state_grad" + sfx, err, ms, pms,
+                   gl_b + slab_b + 8 * sites * 4,
                    cells * (fc["maf_planes"] + fc["maf_grad"])
                    + total(tally) * N * fc["maf_pass"])
         # ---- the rounds of one est_maf_slab call, each piece on the
@@ -320,11 +352,11 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
                                                              fq),
                                  reps=1, warm=0)
                 if r == 1:
-                    err = maf_compare(torch, rec, "maf_sums_grad", b_k, b_p,
-                                      ["cn", "cd", "dcn", "dcd"])
+                    err = maf_compare(torch, rec, "maf_sums_grad" + sfx, b_k,
+                                      b_p, ["cn", "cd", "dcn", "dcd"])
                     rec.record(
-                        "maf_sums_grad", err, ms, pms,
-                        3 * slab_b + 5 * sites * 4,
+                        "maf_sums_grad" + sfx, err, ms, pms,
+                        gl_b + slab_b + 5 * sites * 4,
                         cells * (fc["maf_planes"] + fc["maf_grad"]))
                 grads = b_k
             w_k, ms = timer(lambda: mk._k_maf_window(st, grads, passes, M_r))
@@ -334,8 +366,9 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
             err = maf_compare(torch, rec, f"maf_window (M = {M_r})", w_k,
                               w_p, ["freq", "num", "den", "active"])
             # the line keeps the last (longest) window's times
-            rec.record("maf_window", err, ms, pms, 12 * sites * 4,
-                       total(tally) * fc["maf_window_step"])
+            if not sfx:
+                rec.record("maf_window", err, ms, pms, 12 * sites * 4,
+                           total(tally) * fc["maf_window_step"])
             st, passes = w_k, passes + M_r
         freq_k = mk.est_maf_slab(prep, p_slab)
         if not torch.equal(freq_k, mk._site_vector(st[0], prep)):
@@ -348,6 +381,8 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
             if d > MAF_FREQ_ATOL:
                 fail(f"[{rec.label}] est_maf_slab off est_maf by {d}")
 
+    if sfx:
+        return
     # ---- the exact fixed point (reads the posterior through the snap)
     e_k, ms = timer(lambda: mk._k_maf_exact(g0, g2, p_slab, True), reps=1)
     tally = []
@@ -477,26 +512,73 @@ def check_maf_macro(torch, rows, p, rec, timer, slab=None):
             f"snapped posterior: freq max diff {d:.3g} (information)")
 
 
+def check_macro_slab(torch, prep, p_slab, rec, timer):
+    """The one-launch slab est_maf (maf_macro.cu on the [bs * nb, N] view
+    of the gl slabs of `prep`, float32 or bfloat16) against its plain
+    version (_macro_rows_plain on the same view) and, through macro_slab,
+    against est_maf_slab on the same slabs and raw posterior slab `p_slab`
+    (the same arithmetic in seven launches): freq within MAF_FREQ_ATOL.
+    Records maf_macro_slab[_bf16] with its bound from this data's work."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    g0, g2 = prep["g0"], prep["g2"]
+    bs, nb, N = g0.shape
+    sites, cells = bs * nb, bs * nb * N
+    name = "maf_macro_slab" + cuda_lib.gl_suffix(g0, g2, rec.label)
+    K0, M = tmaf.macro_schedule(N)
+    Ms = tmaf.macro_rounds(K0, M)
+    k, ms = timer(lambda: mk._k_maf_macro_slab(g0, g2, p_slab, K0, Ms))
+    rows = lambda t: t.reshape(sites, N)
+    tally = {"pass": [], "grad": [], "step": []}
+    w, pms = timer(lambda: mk._macro_rows_plain(
+        rows(g0), rows(g2), rows(p_slab), K0, Ms, tally,
+        name="maf_macro_slab"), reps=1, warm=0)
+    err = maf_compare(torch, rec, name, k.reshape(1, -1), w[None], ["freq"])
+    work = {kind: float(torch.stack(v).sum()) for kind, v in tally.items()}
+    fc = FLOPS_CELL
+    rec.record(name, err, ms, pms,
+               2 * cells * g0.element_size() + cells * 4 + sites * 4,
+               cells * fc["maf_planes"] + work["pass"] * N * fc["maf_pass"]
+               + work["grad"] * N * fc["maf_grad"]
+               + work["step"] * fc["maf_window_step"])
+    f_macro = mk.macro_slab(prep, p_slab)
+    if not torch.equal(f_macro, mk._site_vector(k, prep)):
+        fail(f"[{rec.label}] macro_slab differs from its kernel")
+    d = float((f_macro - mk.est_maf_slab(prep, p_slab)).abs().max())
+    log(f"[{rec.label}] {name}: per site {work['pass'] / sites:.2f} real "
+        f"passes, {work['grad'] / sites:.2f} gradient evaluations, "
+        f"{work['step'] / sites:.1f} window steps; macro_slab against "
+        f"est_maf_slab on the same slabs: freq max diff {d:.3g}")
+    if d > MAF_FREQ_ATOL:
+        fail(f"[{rec.label}] macro_slab off est_maf_slab by {d}")
+
+
 def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     """The four stream kernels of one emission source (v1=False: the gl
-    slabs of models/hmm_kernels.py, sl = (g0, g2, fc, dc); v1=True: the
+    slabs of models/hmm_kernels.py, sl = (g0, g2, fc, dc), float32 or
+    bfloat16 gl, the latter recorded as the "_bf16" exports; v1=True: the
     emission slabs of models/hmm_kernels_v1.py, sl = (e0, e1, dc)) and the
     combine between them, each against its plain version on `dev`. Fails
     the run on any disagreement; records every kernel (the combine only
-    for the gl source). Returns the posterior slab."""
+    for the float32 gl source). Returns the posterior slab."""
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
 
-    mod, sfx = (h1, "_v1") if v1 else (hk, "")
-    kern = {k: getattr(mod, f"_k_{k}{sfx}") for k in STREAM_KERNELS}
-    plain = {k: getattr(mod, f"_{k}{sfx}_plain") for k in STREAM_KERNELS}
+    mod, fn_sfx = (h1, "_v1") if v1 else (hk, "")
+    sfx = "_v1" if v1 else cuda_lib.gl_suffix(sl[0], sl[1], label)
+    kern = {k: getattr(mod, f"_k_{k}{fn_sfx}") for k in STREAM_KERNELS}
+    plain = {k: getattr(mod, f"_{k}{fn_sfx}_plain") for k in STREAM_KERNELS}
     bs, nb, N = sl[0].shape
     cells = bs * nb * N
     slab = cells * 4
+    src = 2 * cells * sl[0].element_size()  # the two gl / emission slabs
     record, finite = rec.record, rec.finite
 
     def flops(k):
-        return cells * FLOPS_CELL[k + sfx]
+        return cells * FLOPS_CELL[k + fn_sfx]
 
     def common_scale(got, want, off_g, off_w):
         """Both products rescaled to the plain version's exponent: equal
@@ -517,7 +599,7 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     if err > ATOL:
         fail(f"block_transfer_grad{sfx} [{label}]: max diff {err} > {ATOL}")
     record("block_transfer_grad" + sfx, err, ms, pms,
-           2 * slab + 13 * nb * N * 4, flops("block_transfer_grad"))
+           src + 13 * nb * N * 4, flops("block_transfer_grad"))
     del p1
 
     # ---- transfer, B = 1 (bit identity with the grad kernel) and B = 2
@@ -547,7 +629,7 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
              "from B = 1")
     if err > ATOL:
         fail(f"block_transfer{sfx} [{label}]: max diff {err} > {ATOL}")
-    record("block_transfer" + sfx, err, ms, pms, 2 * slab + 5 * nb * N * 4,
+    record("block_transfer" + sfx, err, ms, pms, src + 5 * nb * N * 4,
            flops("block_transfer"))
     del kb, pb, p4
 
@@ -567,7 +649,7 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     if err > ATOL or ll_err > LL_RTOL or fwbw > 1e-3:
         fail(f"combine_blocks [{label}]: vectors {err}, logliks {ll_err}, "
              f"fw/bw {fwbw}")
-    if not v1:
+    if not sfx:
         record("combine_blocks", err, ms, pms,
                (5 + 4) * nb * N * 4 + 2 * N * 8, 2 * nb * N * 12)
     del k4, A_r
@@ -581,7 +663,7 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     err = float((bw_k - bw_p).abs().max())
     if err > ATOL:
         fail(f"bw_sites{sfx} [{label}]: max diff {err} > {ATOL}")
-    record("bw_sites" + sfx, err, ms, pms, 3 * slab + 2 * nb * N * 4,
+    record("bw_sites" + sfx, err, ms, pms, src + slab + 2 * nb * N * 4,
            flops("bw_sites"))
     del bw_p
 
@@ -596,7 +678,7 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
         fail(f"fw_post{sfx} [{label}]: max diff {err} > {ATOL}")
     if not bool(((po_k >= 0) & (po_k <= 1)).all()):
         fail(f"fw_post{sfx} [{label}]: posterior outside [0, 1]")
-    record("fw_post" + sfx, err, ms, pms, 4 * slab + 2 * nb * N * 4,
+    record("fw_post" + sfx, err, ms, pms, src + 2 * slab + 2 * nb * N * 4,
            flops("fw_post"))
     n_one = int((po_k == 1.0).sum())
     log(f"[{label}] posterior slab{sfx}: {n_one} cells exactly 1.0 "
@@ -637,11 +719,13 @@ def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results):
 
 
 def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
-                  reference=False, fmad_probe=False):
+                  reference=False, fmad_probe=False, bf16=False):
     """Every kernel's wrapper against its plain version on `dev` at this
     shape; fills results[name] with the error and times. Fails the run on
     any disagreement. reference=True also holds the est_maf functions
-    against ops/maf.est_maf on the unpacked [S, N] arrays."""
+    against ops/maf.est_maf on the unpacked [S, N] arrays. bf16=True also
+    holds the one-launch slab est_maf on these slabs, then the bfloat16
+    exports of the gl kernels on bfloat16 slabs of the same gl."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -673,6 +757,20 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     check_maf_kernels(torch, dev, prep, po_k, rec, timer, **ref)
     if fmad_probe and dev.type == "cuda":
         probe_fmad(torch, prep, po_k, timer, label)
+    if bf16:
+        check_macro_slab(torch, prep, po_k, rec, timer)
+        prep_b = hk.prepare_gl_inputs(torch.exp(gl_t), dist_t,
+                                      gl_dtype=torch.bfloat16)
+        rec_b = Recorder(torch, f"{label} bf16", results)
+        po_b = check_streams(torch, dev, rec_b, timer, rec_b.label,
+                             (prep_b["g0"], prep_b["g2"], fc, prep_b["dc"]),
+                             F_t, a_t, v1=False)
+        log(f"[{rec_b.label}] posterior slab against the float32 slabs' "
+            f"one: max diff {float((po_b - po_k).abs().max()):.3g} (the gl "
+            "quantisation; information)")
+        check_maf_kernels(torch, dev, prep_b, po_b, rec_b, timer)
+        check_macro_slab(torch, prep_b, po_b, rec_b, timer)
+        del prep_b, po_b
     del po_k, p_sites, prep, ref
 
     # ---- Viterbi (float32, the main path's dtype; both variants)
@@ -749,21 +847,80 @@ class MafTimer:
                 for sp in self.spans]
 
 
+def reset_peak(torch, dev, label):
+    """Frees what is collectable and resets the peak memory counter just
+    before a path; logs what is still allocated then (the tensors of
+    earlier phases a path's peak would include)."""
+    import gc
+
+    if dev.type != "cuda":
+        return
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[{label}] allocated at the peak reset "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def peak_gib(torch, dev, reset=False):
+    """The peak allocated device memory since the last reset, in GiB;
+    reset=True then starts a new span (what is allocated stays counted)."""
+    if dev.type != "cuda":
+        return float("nan")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def slab_est_maf_step(torch, dev, label, gl, dist, st, gl_bf16):
+    """At a path's end: one posterior slab at the final parameters on the
+    path's kind of gl slabs, then est_maf_slab and macro_slab (the
+    one-launch slab kernel) on it, each timed; fails unless their freqs
+    agree within MAF_FREQ_ATOL."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    f32 = torch.float32
+    prep = hk.prepare_gl_inputs(
+        torch.exp(torch.as_tensor(gl).to(dev, f32)),
+        torch.as_tensor(dist).to(dev, f32),
+        gl_dtype=torch.bfloat16 if gl_bf16 else f32)
+    _, _, _, p_slab = hk.posteriors_fused(
+        st.indF, st.alpha, prep, hk.freq_compact(st.freq, prep),
+        return_slab=True, return_p=False)
+    timer = Timer(torch, dev)
+    f_slab, ms_slab = timer(lambda: mk.est_maf_slab(prep, p_slab))
+    f_macro, ms_macro = timer(lambda: mk.macro_slab(prep, p_slab))
+    d = float((f_macro - f_slab).abs().max())
+    log(f"[{label}] at the final parameters: est_maf_slab {ms_slab:.3f} ms, "
+        f"macro_slab (one launch) {ms_macro:.3f} ms, freq max diff {d:.3g}")
+    if d > MAF_FREQ_ATOL:
+        fail(f"[{label}] macro_slab off est_maf_slab by {d}")
+
+
 def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
-             need, writers):
+             need, writers, gl_bf16=False, against=None):
     """init_state -> run_em [-> writers] with the launch counts set to 0
     just before and read just after; fails unless every kernel in `need`
     was launched, no plain version was called and what came out is sound.
-    Returns the launch counts."""
+    gl_bf16: the run's gl slabs in bfloat16 (EMOptions.gl_bf16); no
+    float32 gl-slab kernel may launch then. Under freq_est 1 with a macro
+    schedule (N >= 32) the path ends with slab_est_maf_step. against: the
+    (freq, ind_lkl) of a float32 run of the same data, held at the bf16
+    envelopes. Returns (the launch counts, (freq, ind_lkl) of the final
+    state)."""
     from ngsf_hmm_tpu_torch.io.writers import write_geno, write_ibd, write_indF
     from ngsf_hmm_tpu_torch.models.em import (EMOptions, init_state,
                                               rebuild_eprob, run_em)
+    from ngsf_hmm_tpu_torch.ops.maf import macro_schedule
     from ngsf_hmm_tpu_torch.utils import cuda_lib
     from ngsf_hmm_tpu_torch.utils.constants import (ALPHA_MAX, ALPHA_MIN,
                                                     F_MAX, F_MIN)
 
     S, N = gl.shape[0], gl.shape[1]
-    opts = EMOptions(freq_est=freq_est, min_iters=3, max_iters=4, verbose=0)
+    opts = EMOptions(freq_est=freq_est, min_iters=3, max_iters=4, verbose=0,
+                     gl_bf16=gl_bf16)
     # fixed frequencies are the simulated ones; estimated ones start flat
     freq0 = freq_true if freq_est == 0 else np.full(S, 0.2)
     iters = []
@@ -772,21 +929,25 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         if event == "iter_done":
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            iters.append((kw["dt"], kw["tot_lkl"],
-                          cuda_lib.LAUNCHES["block_transfer_grad"]))
+            iters.append((kw["dt"], kw["tot_lkl"], cuda_lib.LAUNCHES[
+                "block_transfer_grad" + ("_bf16" if gl_bf16 else "")]))
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
     state = init_state(gl, freq0, indF0, alpha0, device=dev)
     e_prob0 = state.e_prob[:1000].clone()
+    peak_init = peak_gib(torch, dev, reset=True)
     with MafTimer(torch, dev) as maf_timer:
         res = run_em(gl, dist, state, opts, trace=trace, device=dev)
+    del state
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_em = time.perf_counter() - t0
+    peak = peak_gib(torch, dev)
     st = res.state
+    if freq_est and macro_schedule(N) is not None:
+        slab_est_maf_step(torch, dev, label, gl, dist, st, gl_bf16)
     to_np = lambda t: t.detach().cpu().numpy()
     sizes = {}
     if writers:
@@ -820,6 +981,9 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         missing = [k for k in need if counts.get(k, 0) < 1]
         if missing:
             fail(f"[{label}] never launched: {missing} (counts {counts})")
+        f32_gl = [k for k in GL_KERNELS if gl_bf16 and counts.get(k, 0)]
+        if f32_gl:
+            fail(f"[{label}] float32 gl-slab kernels launched: {f32_gl}")
     elif not plain:
         fail("rehearsal: no plain version was called")
     if not (opts.min_iters <= res.n_iters <= opts.max_iters
@@ -883,13 +1047,25 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         if len(maf_ms) != res.n_iters:
             fail(f"[{label}] {len(maf_ms)} freq M-steps in {res.n_iters} "
                  "iterations")
+    finals = (freq, to_np(st.ind_lkl))
+    if against is not None:
+        d_freq = float(np.abs(freq - against[0]).max())
+        d_ll = float((np.abs(finals[1] - against[1])
+                      / np.abs(against[1])).max())
+        log(f"[{label}] against the float32 run: freq max diff {d_freq:.3g} "
+            f"(envelope {BF16_FREQ_ATOL}), ind_lkl max rel diff {d_ll:.3g} "
+            f"(envelope {BF16_LL_RTOL})")
+        if d_freq > BF16_FREQ_ATOL or d_ll > BF16_LL_RTOL:
+            fail(f"[{label}] outside the bf16 envelopes: freq {d_freq}, "
+                 f"ind_lkl {d_ll}")
     if writers:
         if sizes["geno"] != S * N * 3 * 8:
             fail(f".geno holds {sizes['geno']} bytes, expected {S * N * 24}")
         if sizes["ibd"] < N * (S + 1) + N * S * 9 or sizes["indF"] < S * 9:
             fail(f"output files too small: {sizes}")
     probes = np.diff([0] + [c for _, _, c in iters])
-    log(f"[{label}] S={S} N={N} float32 freq_est {freq_est}: init + "
+    log(f"[{label}] S={S} N={N} float32, gl slabs "
+        f"{'bfloat16' if gl_bf16 else 'float32'}, freq_est {freq_est}: init + "
         f"{res.n_iters} EM iterations + Viterbi in {t_em:.2f} s"
         + (f", with writers {t_all:.2f} s" if writers else ""))
     for i, ((dt, tot, _), n_str) in enumerate(zip(iters, probes), 1):
@@ -902,9 +1078,10 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         f"p_ibd {p_ibd.mean():.4f}")
     if dev.type == "cuda":
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
+            f"run_em {peak:.2f} GiB")
     log(f"[{label}] launches {counts}; output bytes {sizes}")
-    return counts
+    return counts, finals
 
 
 def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
@@ -931,8 +1108,7 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
             iters.append((kw["dt"], kw["tot_lkl"].copy(), kw["active"].copy(),
                           cuda_lib.LAUNCHES["block_transfer_grad_v1"]))
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
     # the ngsF-HMM.sh protocol: random inits, replicate r from seed + r
@@ -1065,8 +1241,7 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
     with MafTimer(torch, dev, tem, ("haplo_freq",)) as hap_init:
@@ -1074,6 +1249,7 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
                                e_prob_calc=2, device=dev)
         sync()
     t_init = time.perf_counter() - t0
+    peak_init = peak_gib(torch, dev, reset=True)
     e_head = state.e_prob[1:1001].clone()
     tem.em_iteration = tapped
     try:
@@ -1159,18 +1335,22 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
         f"{to_np(st.alpha).mean():.4f}, Viterbi IBD share "
         f"{res.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
     if dev.type == "cuda":
+        peak = peak_gib(torch, dev)
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} "
+            f"GiB, run_em {peak:.2f} GiB")
     log(f"[{label}] launches {counts}")
     return counts
 
 
-def run_cli(dev, seed, n_rep=1, ld=False):
+def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
     with numpy (n_rep > 1: that many lockstep restarts, the best
     replicate's files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the
-    JAX package's warning on stderr); exit code and outputs checked."""
-    S, N = 5000, 40 if ld else 12
+    JAX package's warning on stderr; gl_bf16: --gl_bf16 1 at 40
+    individuals, the slab est_maf route); exit code and outputs
+    checked."""
+    S, N = 5000, 40 if ld or gl_bf16 else 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
         geno = os.path.join(tmp, "in.geno")
@@ -1192,6 +1372,8 @@ def run_cli(dev, seed, n_rep=1, ld=False):
                "--out", out, "--device", dev.type, "--n_rep", str(n_rep)]
         if ld:
             cmd += ["--e_prob", "2"]
+        if gl_bf16:
+            cmd += ["--gl_bf16", "1"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                            cwd=os.path.dirname(os.path.abspath(__file__)))
         if r.returncode != 0:
@@ -1228,6 +1410,7 @@ def run_cli(dev, seed, n_rep=1, ld=False):
             final += f"; {best[0].strip()}"
         log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}"
             + (" --freq_est 2 --e_prob 2" if ld else "")
+            + (" --gl_bf16 1" if gl_bf16 else "")
             + f": {final.strip()}")
 
 
@@ -1334,12 +1517,17 @@ def main():
     for N_m in (40, 32, 130):
         gl_m, dist_m, freq_m, F0_m, a0_m = simulate(S_m, N_m,
                                                     args.seed + N_m)
-        rows, p_m, _, _ = maf_rows_inputs(torch, dev, gl_m, dist_m, freq_m,
-                                          F0_m, a0_m)
-        check_maf_macro(torch, rows, p_m,
-                        Recorder(torch, f"macro shape N={N_m}", results),
-                        Timer(torch, dev))
-        del gl_m, rows, p_m
+        rows, p_m, prep_m, slab_m = maf_rows_inputs(
+            torch, dev, gl_m, dist_m, freq_m, F0_m, a0_m)
+        rec_m = Recorder(torch, f"macro shape N={N_m}", results)
+        check_maf_macro(torch, rows, p_m, rec_m, Timer(torch, dev))
+        # the slab kernel on the same snapped posterior, float32 and
+        # bfloat16 slabs of the same gl
+        for dt in (torch.float32, torch.bfloat16):
+            check_macro_slab(torch, dict(prep_m, g0=prep_m["g0"].to(dt),
+                                         g2=prep_m["g2"].to(dt)),
+                             slab_m, rec_m, Timer(torch, dev))
+        del gl_m, rows, p_m, prep_m, slab_m
     log(f"[macro shapes] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1347,7 +1535,7 @@ def main():
     log(f"[main] inputs simulated in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
-                  fmad_probe=True)
+                  fmad_probe=True, bf16=True)
     rows, p_m, prep, p_slab = maf_rows_inputs(torch, dev, gl, dist, freq,
                                               F0, a0)
     check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
@@ -1383,10 +1571,15 @@ def main():
     results["maf_exact"] = exact_results["maf_exact"]
 
     # ---- phase 4: the paths (counts set to 0 before each, read after)
-    paths = {
-        "main": run_path(torch, dev, "main", gl, dist, freq, F0, a0, 1,
-                         CHAIN_KERNELS + SLAB_KERNELS, writers=True),
-    }
+    paths, finals = {}, {}
+    paths["main"], finals["main"] = run_path(
+        torch, dev, "main", gl, dist, freq, F0, a0, 1,
+        CHAIN_KERNELS + SLAB_KERNELS + ("maf_macro_slab",), writers=True)
+    # the main path on bfloat16 gl slabs, held against main's final state
+    paths["bf16"], _ = run_path(
+        torch, dev, "bf16", gl, dist, freq, F0, a0, 1,
+        BF16_KERNELS + ("combine_blocks", "viterbi", "maf_window"),
+        writers=False, gl_bf16=True, against=finals["main"])
     # ld2 on the first check-shape count of the same sites: its haplotype
     # EM every iteration is about 15 s at 10^6 sites (plain torch), which
     # would put the script above half its time limit
@@ -1398,11 +1591,11 @@ def main():
             freq[:S_ld], F0, a0, freq_est)
         log(f"[{label}] path done in {time.perf_counter() - t0:.1f} s")
     del gl
-    paths["fixed"] = run_path(torch, dev, "fixed", gl_c, dist_c, freq_c,
-                              F0_c, a0_c, 0, CHAIN_KERNELS, writers=True)
-    paths["exact"] = run_path(torch, dev, "exact", gl_x, dist_x, freq_x,
-                              F0_x, a0_x, 1, CHAIN_KERNELS + ("maf_exact",),
-                              writers=False)
+    paths["fixed"], _ = run_path(torch, dev, "fixed", gl_c, dist_c, freq_c,
+                                 F0_c, a0_c, 0, CHAIN_KERNELS, writers=True)
+    paths["exact"], _ = run_path(torch, dev, "exact", gl_x, dist_x, freq_x,
+                                 F0_x, a0_x, 1, CHAIN_KERNELS + ("maf_exact",),
+                                 writers=False)
     del gl_x
     paths["restart"] = run_restart_path(torch, dev, gl_c, dist_c, freq_c,
                                         R, args.seed + 5)
@@ -1413,10 +1606,12 @@ def main():
     if dev.type == "cuda" and min(counts.values()) < 1:
         fail(f"a kernel was launched on no path: {counts}")
 
-    # ---- phase 5: the CLI: one run, three lockstep restarts, the LD path
+    # ---- phase 5: the CLI: one run, three lockstep restarts, the LD path,
+    # bfloat16 gl slabs
     run_cli(dev, args.seed)
     run_cli(dev, args.seed, n_rep=3)
     run_cli(dev, args.seed, ld=True)
+    run_cli(dev, args.seed, gl_bf16=True)
 
     if args.rehearse:
         log("rehearsal on the CPU finished; no result is printed for it")

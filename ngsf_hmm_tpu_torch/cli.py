@@ -12,10 +12,12 @@ device, with the allele frequencies estimated every iteration
 ngsF-HMM.sh protocol; the best replicate's files are written). One run
 also takes the LD path (--freq_est 2, --e_prob 2), in the corrected form
 of the JAX package (a warning says so). It is the default for --kernel /
---dtype here; the flags of tiers still to be ported (--freq_est 2 or
---e_prob other than 1 with --n_rep, --mesh, --stream_chunk, --checkpoint,
---opt compat, other --kernel / --dtype values, --gl_bf16 1, --profile)
-are parsed and refused with an error.
+--dtype here; --gl_bf16 1 stores its gl slabs in bfloat16 (auto keeps
+float32, as the JAX package does for runs held in memory). The flags of
+tiers still to be ported (--freq_est 2 or --e_prob other than 1 with
+--n_rep, --mesh, --stream_chunk, --checkpoint, --opt compat, other
+--kernel / --dtype values, --profile) are parsed and refused with an
+error.
 
 Example:
     python -m ngsf_hmm_tpu_torch --geno data.glf.gz --loglkl --n_ind 20 \
@@ -62,11 +64,11 @@ _OPTIONS = [
     ("device", True, None),  # cuda (default) | cpu
     ("kernel", True, None),  # pallas = the fused kernel tier (only one ported)
     ("n_rep", True, None),  # multi-restart replicates (ngsF-HMM.sh N_REP)
+    ("gl_bf16", True, None),  # 0 | 1 | auto: bfloat16 gl slabs
     # The flags below belong to tiers this package does not carry yet;
     # they are parsed (same names as the JAX package's CLI) and refused
     # in main() unless left at their defaults.
     ("opt", True, None),  # speed (default) | compat
-    ("gl_bf16", True, None),  # 0 | 1 | auto
     ("checkpoint", True, None),
     ("checkpoint_every", True, None),
     ("resume", False, None),
@@ -326,8 +328,8 @@ def _refuse_unported(p):
                       "with --n_rep is not ported yet")
     if p["opt"] != "speed":
         error("main", "--opt compat is not ported yet")
-    if p["gl_bf16"] not in ("0", "auto"):
-        error("main", "--gl_bf16 1 is not ported yet")
+    if p["gl_bf16"] not in ("0", "1", "auto"):
+        error("main", f"invalid --gl_bf16 {p['gl_bf16']!r} (0|1|auto)")
     if p["n_rep"] < 1:
         error("main", "invalid number of replicates (--n_rep)!")
     for flag in ("checkpoint", "mesh", "coordinator", "profile"):
@@ -491,6 +493,9 @@ def main(argv=None):
         min_epsilon=p["min_epsilon"],
         verbose=p["verbose"],
         log_every=p["log"],
+        # runs held in memory: bfloat16 gl slabs only when asked for
+        # ("auto" keeps float32, as the JAX CLI does there)
+        gl_bf16=p["gl_bf16"] == "1",
     )
 
     if p["verbose"] >= 5:

@@ -1,7 +1,8 @@
 // Kernel: per-block transfer products for B candidate parameter sets.
-// One template over the emission source (hmm_common.cuh), two exports:
+// One template over the emission source (hmm_common.cuh), three exports:
 //   ngsf_block_transfer     (GlSource) replaces
 //                           ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer
+//   ngsf_block_transfer_bf16  the same on bfloat16 gl slabs
 //   ngsf_block_transfer_v1  (EmSource) replaces
 //                           ngsf_hmm_tpu/models/hmm_pallas.py:_k_block_transfer
 // Bound by bytes: it reads the two slabs once per candidate and writes
@@ -71,8 +72,18 @@ extern "C" int ngsf_block_transfer(const float* g0, const float* g2,
                                    const float* F, const float* alpha,
                                    float* out, int bs, int nb, int N, int B,
                                    void* stream) {
-    return launch(GlSource{g0, g2, fc, dc}, F, alpha, out, bs, nb, N, B,
-                  stream);
+    return launch(GlSource<float>{g0, g2, fc, dc}, F, alpha, out, bs, nb, N,
+                  B, stream);
+}
+
+extern "C" int ngsf_block_transfer_bf16(const __nv_bfloat16* g0,
+                                        const __nv_bfloat16* g2,
+                                        const float* fc, const float* dc,
+                                        const float* F, const float* alpha,
+                                        float* out, int bs, int nb, int N,
+                                        int B, void* stream) {
+    return launch(GlSource<__nv_bfloat16>{g0, g2, fc, dc}, F, alpha, out, bs,
+                  nb, N, B, stream);
 }
 
 extern "C" int ngsf_block_transfer_v1(const float* e0, const float* e1,

@@ -1,8 +1,9 @@
 // Kernel: per-block transfer products with forward-mode (F, alpha)
 // tangents sharing the primal's power-of-two rescale.
-// One template over the emission source (hmm_common.cuh), two exports:
+// One template over the emission source (hmm_common.cuh), three exports:
 //   ngsf_block_transfer_grad     (GlSource) replaces
 //                                ngsf_hmm_tpu/models/hmm_pallas.py:_k2_block_transfer_grad
+//   ngsf_block_transfer_grad_bf16  the same on bfloat16 gl slabs
 //   ngsf_block_transfer_grad_v1  (EmSource) replaces
 //                                ngsf_hmm_tpu/models/hmm_pallas.py:_k_block_transfer_grad
 // Bound by bytes on paper (two slabs read once, 13 floats per lane
@@ -94,7 +95,19 @@ extern "C" int ngsf_block_transfer_grad(const float* g0, const float* g2,
                                         const float* F, const float* alpha,
                                         float* out, int bs, int nb, int N,
                                         void* stream) {
-    return launch(GlSource{g0, g2, fc, dc}, F, alpha, out, bs, nb, N, stream);
+    return launch(GlSource<float>{g0, g2, fc, dc}, F, alpha, out, bs, nb, N,
+                  stream);
+}
+
+extern "C" int ngsf_block_transfer_grad_bf16(const __nv_bfloat16* g0,
+                                             const __nv_bfloat16* g2,
+                                             const float* fc, const float* dc,
+                                             const float* F,
+                                             const float* alpha, float* out,
+                                             int bs, int nb, int N,
+                                             void* stream) {
+    return launch(GlSource<__nv_bfloat16>{g0, g2, fc, dc}, F, alpha, out, bs,
+                  nb, N, stream);
 }
 
 extern "C" int ngsf_block_transfer_grad_v1(const float* e0, const float* e1,

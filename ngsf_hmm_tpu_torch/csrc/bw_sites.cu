@@ -1,8 +1,9 @@
 // Kernel: reversed stream from each block's end vector, writing the
 // per-site backward ratio r = bw1 / (bw0 + bw1).
-// One template over the emission source (hmm_common.cuh), two exports:
+// One template over the emission source (hmm_common.cuh), three exports:
 //   ngsf_bw_sites     (GlSource) replaces
 //                     ngsf_hmm_tpu/models/hmm_pallas.py:_k2_bw_sites
+//   ngsf_bw_sites_bf16  the same on bfloat16 gl slabs
 //   ngsf_bw_sites_v1  (EmSource) replaces
 //                     ngsf_hmm_tpu/models/hmm_pallas.py:_k_bw_sites
 //                     (which writes bw0 and bw1; the posterior needs only
@@ -68,8 +69,18 @@ extern "C" int ngsf_bw_sites(const float* g0, const float* g2,
                              const float* fc, const float* dc, const float* F,
                              const float* alpha, const float* ends, float* bwr,
                              int bs, int nb, int N, void* stream) {
-    return launch(GlSource{g0, g2, fc, dc}, F, alpha, ends, bwr, bs, nb, N,
-                  stream);
+    return launch(GlSource<float>{g0, g2, fc, dc}, F, alpha, ends, bwr, bs,
+                  nb, N, stream);
+}
+
+extern "C" int ngsf_bw_sites_bf16(const __nv_bfloat16* g0,
+                                  const __nv_bfloat16* g2, const float* fc,
+                                  const float* dc, const float* F,
+                                  const float* alpha, const float* ends,
+                                  float* bwr, int bs, int nb, int N,
+                                  void* stream) {
+    return launch(GlSource<__nv_bfloat16>{g0, g2, fc, dc}, F, alpha, ends,
+                  bwr, bs, nb, N, stream);
 }
 
 extern "C" int ngsf_bw_sites_v1(const float* e0, const float* e1,

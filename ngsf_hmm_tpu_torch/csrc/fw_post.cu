@@ -1,9 +1,10 @@
 // Kernel: forward stream from each block's start vector, reading the
 // backward ratio slab and writing the per-site IBD posterior
 // p = fw1 r / (fw0 (1 - r) + fw1 r).
-// One template over the emission source (hmm_common.cuh), two exports:
+// One template over the emission source (hmm_common.cuh), three exports:
 //   ngsf_fw_post     (GlSource) replaces
 //                    ngsf_hmm_tpu/models/hmm_pallas.py:_k2_fw_post
+//   ngsf_fw_post_bf16  the same on bfloat16 gl slabs
 //   ngsf_fw_post_v1  (EmSource) replaces
 //                    ngsf_hmm_tpu/models/hmm_pallas.py:_k_fw_post
 // Bound by bytes: three slabs read, one written.
@@ -73,8 +74,18 @@ extern "C" int ngsf_fw_post(const float* g0, const float* g2, const float* fc,
                             const float* alpha, const float* starts,
                             const float* bwr, float* p, int bs, int nb, int N,
                             void* stream) {
-    return launch(GlSource{g0, g2, fc, dc}, F, alpha, starts, bwr, p, bs, nb,
-                  N, stream);
+    return launch(GlSource<float>{g0, g2, fc, dc}, F, alpha, starts, bwr, p,
+                  bs, nb, N, stream);
+}
+
+extern "C" int ngsf_fw_post_bf16(const __nv_bfloat16* g0,
+                                 const __nv_bfloat16* g2, const float* fc,
+                                 const float* dc, const float* F,
+                                 const float* alpha, const float* starts,
+                                 const float* bwr, float* p, int bs, int nb,
+                                 int N, void* stream) {
+    return launch(GlSource<__nv_bfloat16>{g0, g2, fc, dc}, F, alpha, starts,
+                  bwr, p, bs, nb, N, stream);
 }
 
 extern "C" int ngsf_fw_post_v1(const float* e0, const float* e1,

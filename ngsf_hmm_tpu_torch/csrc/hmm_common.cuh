@@ -12,7 +12,10 @@
 // template over the source, instantiated once for each):
 //   GlSource  (v2, "gl layout"): gl0 / gl2 slabs + the per-site freq
 //             compact; the emissions are built in-kernel. Pads carry
-//             freq = 2 (sentinel: emission exactly 1).
+//             freq = 2 (sentinel: emission exactly 1). A template over
+//             the slabs' storage type: float, or __nv_bfloat16 upcast at
+//             load (gl_load.cuh), so each kernel has a float32 and a
+//             bfloat16 gl export.
 //   EmSource  (v1, "emission layout"): precomputed linear emission slabs
 //             e0 / e1 (columns = individuals, or replicate x individual
 //             when replicates are flattened). Pads carry e = 1.
@@ -24,6 +27,8 @@
 // their primal from the functions below.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "gl_load.cuh"
 
 #define NGSF_TINY 1e-30f
 #define NGSF_LN2 0.6931471805599453f
@@ -87,10 +92,12 @@ __device__ __forceinline__ float max4(float a, float b, float c, float d) {
     return fmaxf(fmaxf(a, b), fmaxf(c, d));
 }
 
-// v2 source: emissions from (gl0, gl2, freq) through site_load.
+// v2 source: emissions from (gl0, gl2, freq) through site_load; T is the
+// slabs' storage type (float or __nv_bfloat16).
+template <class T>
 struct GlSource {
-    const float* a;   // gl0 slab [bs, nb, N]
-    const float* b;   // gl2 slab [bs, nb, N]
+    const T* a;       // gl0 slab [bs, nb, N]
+    const T* b;       // gl2 slab [bs, nb, N]
     const float* fc;  // freq compact [bs, nb], pad 2.0
     const float* dc;  // dist compact [bs, nb], pad 0
     static constexpr bool kFreq = true;
@@ -132,8 +139,8 @@ __device__ __forceinline__ void chunk_load(
         const int r = r0 + u;
         if (r < bs) {
             const long long o = (long long)r * lanes + lane;
-            a0[u] = __ldg(src.a + o);
-            a2[u] = __ldg(src.b + o);
+            a0[u] = ld_gl(src.a + o);
+            a2[u] = ld_gl(src.b + o);
             ff[u] = Src::kFreq ? __ldg(src.fc + (long long)r * nb + j) : 0.0f;
             dd[u] = __ldg(src.dc + (long long)r * nb + j);
         } else {

@@ -21,6 +21,16 @@
 // the schedule (an inactive site advances as a no-op, so this equals the
 // TPU kernel's exit per tile).
 // Layout: g0 / g2 / p are [sites, N] rows (site s at row s); freq [sites].
+//
+// The same template also replaces ngsf_hmm_tpu/ops/maf_pallas.py
+// :_run_macro_slab, the same schedule on the gl slabs: the port's slabs
+// [bs, nb, N] are already rows of N cells (row r * nb + j is site
+// j * bs + r), so that kernel is this one on the [bs * nb, N] view of the
+// slabs. What it adds is its input type: the gl slabs may be stored in
+// bfloat16 (upcast at load, gl_load.cuh). Two exports:
+//   ngsf_maf_macro       float32 g0 / g2 (the rows of the LD path, or the
+//                        float32 gl slabs)
+//   ngsf_maf_macro_bf16  bfloat16 g0 / g2 slabs (8 bytes a cell in all)
 #include "maf_common.cuh"
 
 #define NGSF_MAF_MAX_ROUNDS 8
@@ -30,15 +40,15 @@ struct MafRounds {
     int m[NGSF_MAF_MAX_ROUNDS];
 };
 
-template <int CPL>
-__global__ void k_maf_macro(const float* __restrict__ g0,
-                            const float* __restrict__ g2,
+template <int CPL, class T>
+__global__ void k_maf_macro(const T* __restrict__ g0,
+                            const T* __restrict__ g2,
                             const float* __restrict__ p,
                             float* __restrict__ out,  // [sites]
                             long long sites, int N, int K0,
                             MafRounds rounds) {
     NGSF_MAF_WARP_SITE()
-    MafSite<CPL> s;
+    MafSite<CPL, T> s;
     s.load(g0, g2, p, site, N, lane);
     float freq = 0.01f, num = 0.0f, den = 0.0f, active = 1.0f;
     float cn, cd, dcn = 0.0f, dcd = 0.0f;
@@ -62,21 +72,36 @@ __global__ void k_maf_macro(const float* __restrict__ g0,
     if (lane == 0) out[site] = freq;
 }
 
-extern "C" int ngsf_maf_macro(const float* g0, const float* g2,
-                              const float* p, float* out, long long sites,
-                              int N, int K0, const int* ms, int n_rounds,
-                              void* stream) {
+template <class T>
+static int launch(const T* g0, const T* g2, const float* p, float* out,
+                  long long sites, int N, int K0, const int* ms,
+                  int n_rounds, void* stream) {
     if (n_rounds < 0 || n_rounds > NGSF_MAF_MAX_ROUNDS)
         return (int)cudaErrorInvalidValue;
     MafRounds rounds;
     rounds.n = n_rounds;
     for (int r = 0; r < NGSF_MAF_MAX_ROUNDS; ++r)
         rounds.m[r] = r < n_rounds ? ms[r] : 0;
-#define CALL(C)                                                         \
-    k_maf_macro<C><<<NGSF_MAF_GRID(sites), 32 * NGSF_MAF_WARPS, 0,      \
-                     (cudaStream_t)stream>>>(g0, g2, p, out, sites, N,  \
-                                             K0, rounds);
+#define CALL(C)                                                            \
+    k_maf_macro<C, T><<<NGSF_MAF_GRID(sites), 32 * NGSF_MAF_WARPS, 0,      \
+                        (cudaStream_t)stream>>>(g0, g2, p, out, sites, N,  \
+                                                K0, rounds);
     NGSF_MAF_DISPATCH(N, CALL)
 #undef CALL
     return (int)cudaGetLastError();
+}
+
+extern "C" int ngsf_maf_macro(const float* g0, const float* g2,
+                              const float* p, float* out, long long sites,
+                              int N, int K0, const int* ms, int n_rounds,
+                              void* stream) {
+    return launch(g0, g2, p, out, sites, N, K0, ms, n_rounds, stream);
+}
+
+extern "C" int ngsf_maf_macro_bf16(const __nv_bfloat16* g0,
+                                   const __nv_bfloat16* g2, const float* p,
+                                   float* out, long long sites, int N, int K0,
+                                   const int* ms, int n_rounds,
+                                   void* stream) {
+    return launch(g0, g2, p, out, sites, N, K0, ms, n_rounds, stream);
 }

@@ -11,7 +11,9 @@ This module carries the single-device kernel routes, float32:
   - the fused route (models/hmm_kernels.py, emissions built in-kernel from
     (gl, freq)): one run, e_prob_calc 1, freq_est 1 (the default; the
     freq M-step on the est_maf kernels of ops/maf_kernels.py) or 0
-    (allele frequencies held fixed);
+    (allele frequencies held fixed); its gl slabs are float32, or
+    bfloat16 under gl_bf16 (half their bytes; the kernels upcast at
+    load);
   - the emission-slab route (models/hmm_kernels_v1.py), which reads
     state.e_prob: R > 1 replicates flattened into the column axis
     (models/restart.py; freq_est 0/1, e_prob_calc 1), and one run on the
@@ -76,7 +78,13 @@ class EMOptions:
     block_size: object = None  # blocked torch tier: not ported
     numerics: str = "pallas"  # the fused kernel tier (the JAX name)
     log_every: int = 0  # --log N cadence (EM.cpp:59-63)
-    gl_bf16: bool = False  # bfloat16 gl slabs: not ported
+    # Store the fused route's gl slabs in bfloat16 (half their bytes, the
+    # dominant ones of every stream). The kernels upcast at load, so only
+    # the gl input is quantised (about 2^-9 relative); all the chain and
+    # est_maf arithmetic stays float32. The emission-slab routes (restarts,
+    # the LD path) read no gl slabs, and the exact freq M-step (N < 32)
+    # reads float32 gl, as in the JAX package.
+    gl_bf16: bool = False
 
 
 class EMState(NamedTuple):
@@ -108,7 +116,7 @@ class EMResult:
 
 
 def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
-            block_size=None, gl_bf16=False):
+            block_size=None):
     """Raise for every option value this package does not carry yet."""
     if n_rep < 1:
         raise ValueError(f"n_rep must be >= 1, got {n_rep}")
@@ -130,9 +138,6 @@ def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
     if block_size:
         raise NotImplementedError(
             "block_size (ROADMAP queue 1: 'models/hmm_blocked.py')")
-    if gl_bf16:
-        raise NotImplementedError(
-            "gl_bf16 (ROADMAP queue 1: 'bf16 gl slabs')")
 
 
 def _device(device):
@@ -227,8 +232,17 @@ def em_iteration(
 
     prep_slabs / return_prep: thread the gl slabs + dist compact across
     iterations (they are constants of the run). prep_slabs is the
-    (g0, g2, dc) tuple a previous call returned; return_prep=True makes
-    the return (state, stats, slabs).
+    (g0, g2, dc) tuple a previous call returned, or (g0, g2, dc, f0, f2)
+    with the float32 slabs of the exact freq M-step under gl_bf16;
+    return_prep=True makes the return (state, stats, slabs). The slabs
+    keep their dtype across iterations.
+
+    gl_bf16: build the gl slabs in bfloat16 (EMOptions.gl_bf16): the chain
+    kernels and est_maf_slab run their bfloat16 exports. The exact freq
+    M-step (N < 32) reads float32 slabs of the same gl instead (JAX builds
+    float32 gl tiles for its _run there), so its freq, for the same
+    posterior, equals the float32 route's bit for bit. The emission-slab
+    routes below read no gl slabs: gl_bf16 changes nothing there.
 
     opt_memory / return_opt: thread the (F, alpha) M-step's L-BFGS
     curvature memory ((S, Y, valid, head)) across EM iterations;
@@ -261,7 +275,7 @@ def em_iteration(
     prep_slabs is then the (g0, g2) pair of linear gl planes [S, N] of
     est_maf_rows (freq_est 1; None otherwise) and defer_* do not apply.
     """
-    _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size, gl_bf16)
+    _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size)
     if n_rep > 1 or e_prob_calc != 1 or freq_est == 2:
         st, stats, slabs, mem = _em_iteration_v1(
             gl, dist, state, n_rep, freq_est, e_prob_calc, indF_fixed,
@@ -274,9 +288,19 @@ def em_iteration(
     # ---- E-step: forward-backward posteriors (EM.cpp:147-185)
     if prep_slabs is not None:
         bs2, nb2 = hmm_kernels.pick_geom2(S, N)
-        prep2 = hmm_kernels.make_prep2(*prep_slabs, S, N, bs2, nb2)
+        prep2 = hmm_kernels.make_prep2(*prep_slabs[:3], S, N, bs2, nb2)
+        exact_gl = tuple(prep_slabs[3:])
     else:
-        prep2 = hmm_kernels.prepare_gl_inputs(torch.exp(gl), dist)
+        gl_lin = torch.exp(gl)
+        prep2 = hmm_kernels.prepare_gl_inputs(
+            gl_lin, dist,
+            gl_dtype=torch.bfloat16 if gl_bf16 else torch.float32)
+        # the exact freq M-step reads float32 gl (JAX em.py:562-566 runs
+        # _run on float32 tiles): keep float32 slabs beside the bf16 ones
+        exact_gl = ()
+        if gl_bf16 and freq_est == 1 and macro_schedule(N) is None:
+            exact_gl = hmm_kernels.gl_slabs(gl_lin, prep2["bs"], prep2["nb"])
+        del gl_lin
     fc = hmm_kernels.freq_compact(state.freq, prep2)
     # E-step / M-step merge: when the (F, alpha) M-step will run, the
     # transfer pass is the fused transfer+TANGENT stream -- its primal
@@ -317,13 +341,15 @@ def em_iteration(
         if macro_schedule(N) is not None:
             freq = maf_kernels.est_maf_slab(prep2, p_slab).to(dtype)
         else:
-            freq = maf_kernels.est_maf_exact(prep2, p_slab,
+            prep_x = dict(prep2, g0=exact_gl[0],
+                          g2=exact_gl[1]) if exact_gl else prep2
+            freq = maf_kernels.est_maf_exact(prep_x, p_slab,
                                              snap=True).to(dtype)
         e_prob = state.e_prob if defer_emissions else rebuild_eprob(gl, freq)
     new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ind_lkl)
     out = (new_state, IterStats(fwbw_maxdiff, opt_iters))
     if return_prep:
-        out = out + ((prep2["g0"], prep2["g2"], prep2["dc"]),)
+        out = out + ((prep2["g0"], prep2["g2"], prep2["dc"]) + exact_gl,)
     if return_opt:
         out = out + (opt_mem,)
     return out
@@ -545,7 +571,7 @@ def run_em(
     from .driver import convergence_loop
 
     _refuse(opts.freq_est, opts.e_prob_calc, 1, opts.numerics,
-            opts.block_size, opts.gl_bf16)
+            opts.block_size)
     dev = _device(device)
     dtype = state.indF.dtype
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
@@ -581,10 +607,12 @@ def run_em(
         freq_p, F_p, a_p = prev_params["v"]
         if prep_holder["slabs"] is not None:
             bs2, nb2 = hmm_kernels.pick_geom2(S, N)
-            prep2 = hmm_kernels.make_prep2(*prep_holder["slabs"], S, N,
+            prep2 = hmm_kernels.make_prep2(*prep_holder["slabs"][:3], S, N,
                                            bs2, nb2)
         else:
-            prep2 = hmm_kernels.prepare_gl_inputs(torch.exp(gl), dist)
+            prep2 = hmm_kernels.prepare_gl_inputs(
+                torch.exp(gl), dist,
+                gl_dtype=torch.bfloat16 if opts.gl_bf16 else torch.float32)
         fc = hmm_kernels.freq_compact(freq_p, prep2)
         p, _, _ = hmm_kernels.posteriors_fused(F_p, a_p, prep2, fc)
         return st._replace(p_ibd=check_interv(p.to(dtype)))

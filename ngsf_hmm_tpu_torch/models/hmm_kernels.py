@@ -21,6 +21,12 @@ The port's own layout (see ``csrc/hmm_common.cuh``): gl0 / gl2 slabs
 s = j * bs + r. Pad sites carry freq = 2.0 (sentinel: emission exactly 1)
 and dist = 0 (identity transition), so they are exact no-ops.
 
+The gl slabs are stored in float32 or in bfloat16 (prepare_gl_inputs'
+gl_dtype; the JAX package's gl_bf16): bfloat16 halves their bytes, the
+dominant ones of every stream. Every kernel upcasts them at load and
+computes in float32, so only the stored gl is quantised; each kernel has
+a bfloat16 export ("_bf16"), which counts under that name too.
+
 Public shapes follow the JAX package (models/hmm_pallas.py): transfer
 products [nb, K, B, N], posteriors [S, N], log-likelihoods [N]. The
 log-likelihoods are float64: the combine sums the block offsets in
@@ -90,12 +96,17 @@ def _unpack_sites2(p, prep2):
     return p.transpose(0, 1).reshape(nb * bs, N)[:S]
 
 
-def gl_slabs(gl_lin, bs, nb):
+def gl_slabs(gl_lin, bs, nb, dtype=_f32):
     """[S, N, 3] LINEAR gls -> (gl0, gl2) [bs, nb, N] slabs. Built once
-    per run (gl is constant across EM iterations); pad cells get 1/3."""
+    per run (gl is constant across EM iterations); pad cells get 1/3.
+
+    dtype: the slabs' storage type, float32 or bfloat16. The slab is laid
+    out and padded in float32 and then cast once (round to nearest even,
+    as the JAX package's astype(bfloat16)), so its values equal the JAX
+    package's bit for bit."""
     geom = dict(S=gl_lin.shape[0], N=gl_lin.shape[1], bs=bs, nb=nb)
-    return (pack_sites2(gl_lin[..., 0], geom, 1.0 / 3.0),
-            pack_sites2(gl_lin[..., 2], geom, 1.0 / 3.0))
+    return tuple(pack_sites2(gl_lin[..., ch], geom, 1.0 / 3.0).to(dtype)
+                 for ch in (0, 2))
 
 
 def make_prep2(g0, g2, dc, S, N, bs, nb):
@@ -103,16 +114,17 @@ def make_prep2(g0, g2, dc, S, N, bs, nb):
     return dict(g0=g0, g2=g2, dc=dc, S=S, N=N, bs=bs, nb=nb)
 
 
-def prepare_gl_inputs(gl_lin, dist, bs=None):
+def prepare_gl_inputs(gl_lin, dist, bs=None, gl_dtype=_f32):
     """(gl_lin [S, N, 3] LINEAR, dist [S]) -> prep2 dict. Run-constant:
     build once, thread everywhere. freq enters per iteration via
-    freq_compact."""
+    freq_compact. gl_dtype: the gl slabs' storage type (gl_slabs); the
+    dist compact stays float32."""
     S, N = gl_lin.shape[0], gl_lin.shape[1]
     if bs is None:
         bs, nb = pick_geom2(S, N)
     else:
         nb = -(-S // bs)
-    g0, g2 = gl_slabs(gl_lin, bs, nb)
+    g0, g2 = gl_slabs(gl_lin, bs, nb, gl_dtype)
     dc = site_compact(torch.as_tensor(dist, device=gl_lin.device), bs, nb, 0.0)
     return make_prep2(g0, g2, dc, S, N, bs, nb)
 
@@ -160,8 +172,10 @@ def _site_plain(g0r, g2r, fr, dr, a):
 
 def _gl_site(g0, g2, fc, dc):
     """The v2 emission source of the plain loops: site r, decay rate a ->
-    _site_plain's (e0, e1, x, onem)."""
-    return lambda r, a: _site_plain(g0[r], g2[r], fc[r], dc[r], a)
+    _site_plain's (e0, e1, x, onem). bfloat16 slabs are upcast at load,
+    as the kernels do, so g1 = 1 - g0 - g2 is formed in float32."""
+    return lambda r, a: _site_plain(cuda_lib.upcast(g0[r]),
+                                    cuda_lib.upcast(g2[r]), fc[r], dc[r], a)
 
 
 def _site_matrix_plain(e0, e1, x, onem, F):
@@ -188,18 +202,21 @@ def _tiny(x):
 
 
 def _check_stream_args(name, g0, g2, fc, dc, F, alpha, B=None):
+    """Raise unless the arguments fit the kernel; returns (bs, nb, N, the
+    export suffix of the gl slabs' dtype)."""
+    sfx = cuda_lib.gl_suffix(g0, g2, name)
     bs, nb, N = g0.shape
     dev = g0.device
-    for nm, t, shp in (
-        ("g0", g0, (bs, nb, N)), ("g2", g2, (bs, nb, N)),
-        ("fc", fc, (bs, nb)), ("dc", dc, (bs, nb)),
-        ("F", F, (N,) if B is None else (B, N)),
-        ("alpha", alpha, (N,) if B is None else (B, N)),
+    for nm, t, dt, shp in (
+        ("g0", g0, g0.dtype, (bs, nb, N)), ("g2", g2, g0.dtype, (bs, nb, N)),
+        ("fc", fc, _f32, (bs, nb)), ("dc", dc, _f32, (bs, nb)),
+        ("F", F, _f32, (N,) if B is None else (B, N)),
+        ("alpha", alpha, _f32, (N,) if B is None else (B, N)),
     ):
-        cuda_lib.require(t, f"{name}.{nm}", _f32, shp)
+        cuda_lib.require(t, f"{name}.{nm}", dt, shp)
         if t.device != dev:
             raise ValueError(f"{name}.{nm}: on {t.device}, slabs on {dev}")
-    return bs, nb, N
+    return bs, nb, N, sfx
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +245,7 @@ def _transfer_loop(site, shape, F, alpha, device):
 def _block_transfer_plain(g0, g2, fc, dc, F, alpha):
     """Plain version of csrc/block_transfer.cu: F/alpha [B, N] ->
     [5, B, nb, N]."""
-    PLAIN_CALLS["block_transfer"] += 1
+    cuda_lib.count_plain("block_transfer", g0)
     return _transfer_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha,
                           g0.device)
 
@@ -244,15 +261,15 @@ def _k_block_transfer(g0, g2, fc, dc, F, alpha):
     if not g0.is_cuda:
         return _block_transfer_plain(g0, g2, fc, dc, F, alpha)
     B = F.shape[0]
-    bs, nb, N = _check_stream_args("block_transfer", g0, g2, fc, dc, F,
-                                   alpha, B=B)
+    bs, nb, N, sfx = _check_stream_args("block_transfer", g0, g2, fc, dc, F,
+                                        alpha, B=B)
     out = torch.empty((5, B, nb, N), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_block_transfer(
+    rc = getattr(cuda_lib.load(), "ngsf_block_transfer" + sfx)(
         g0.data_ptr(), g2.data_ptr(), fc.data_ptr(), dc.data_ptr(),
         F.data_ptr(), alpha.data_ptr(), out.data_ptr(), bs, nb, N, B,
         cuda_lib.stream())
-    cuda_lib.check(rc, "block_transfer")
-    LAUNCHES["block_transfer"] += 1
+    cuda_lib.check(rc, "block_transfer" + sfx)
+    LAUNCHES["block_transfer" + sfx] += 1
     return out
 
 
@@ -296,7 +313,7 @@ def _transfer_grad_loop(site, dc, shape, F, alpha, device):
 def _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha):
     """Plain version of csrc/block_transfer_grad.cu: F/alpha [N] ->
     [13, nb, N]."""
-    PLAIN_CALLS["block_transfer_grad"] += 1
+    cuda_lib.count_plain("block_transfer_grad", g0)
     return _transfer_grad_loop(_gl_site(g0, g2, fc, dc), dc, g0.shape, F,
                                alpha, g0.device)
 
@@ -313,15 +330,15 @@ def _k_block_transfer_grad(g0, g2, fc, dc, F, alpha):
     and the exponent sum stay in registers."""
     if not g0.is_cuda:
         return _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha)
-    bs, nb, N = _check_stream_args("block_transfer_grad", g0, g2, fc, dc, F,
-                                   alpha)
+    bs, nb, N, sfx = _check_stream_args("block_transfer_grad", g0, g2, fc,
+                                        dc, F, alpha)
     out = torch.empty((13, nb, N), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_block_transfer_grad(
+    rc = getattr(cuda_lib.load(), "ngsf_block_transfer_grad" + sfx)(
         g0.data_ptr(), g2.data_ptr(), fc.data_ptr(), dc.data_ptr(),
         F.data_ptr(), alpha.data_ptr(), out.data_ptr(), bs, nb, N,
         cuda_lib.stream())
-    cuda_lib.check(rc, "block_transfer_grad")
-    LAUNCHES["block_transfer_grad"] += 1
+    cuda_lib.check(rc, "block_transfer_grad" + sfx)
+    LAUNCHES["block_transfer_grad" + sfx] += 1
     return out
 
 
@@ -350,7 +367,7 @@ def _bw_loop(site, shape, F, alpha, ends, device):
 def _bw_sites_plain(g0, g2, fc, dc, F, alpha, ends):
     """Plain version of csrc/bw_sites.cu: ends [2, nb, N] -> ratio slab
     [bs, nb, N]."""
-    PLAIN_CALLS["bw_sites"] += 1
+    cuda_lib.count_plain("bw_sites", g0)
     return _bw_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha, ends,
                     g0.device)
 
@@ -364,15 +381,16 @@ def _k_bw_sites(g0, g2, fc, dc, F, alpha, ends):
     lane walks its block's sites in reverse with a 2-vector carry."""
     if not g0.is_cuda:
         return _bw_sites_plain(g0, g2, fc, dc, F, alpha, ends)
-    bs, nb, N = _check_stream_args("bw_sites", g0, g2, fc, dc, F, alpha)
+    bs, nb, N, sfx = _check_stream_args("bw_sites", g0, g2, fc, dc, F,
+                                        alpha)
     cuda_lib.require(ends, "bw_sites.ends", _f32, (2, nb, N))
     out = torch.empty((bs, nb, N), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_bw_sites(
+    rc = getattr(cuda_lib.load(), "ngsf_bw_sites" + sfx)(
         g0.data_ptr(), g2.data_ptr(), fc.data_ptr(), dc.data_ptr(),
         F.data_ptr(), alpha.data_ptr(), ends.data_ptr(), out.data_ptr(),
         bs, nb, N, cuda_lib.stream())
-    cuda_lib.check(rc, "bw_sites")
-    LAUNCHES["bw_sites"] += 1
+    cuda_lib.check(rc, "bw_sites" + sfx)
+    LAUNCHES["bw_sites" + sfx] += 1
     return out
 
 
@@ -403,7 +421,7 @@ def _fw_loop(site, shape, F, alpha, starts, bwr, device):
 def _fw_post_plain(g0, g2, fc, dc, F, alpha, starts, bwr):
     """Plain version of csrc/fw_post.cu: starts [2, nb, N], ratio slab ->
     posterior slab [bs, nb, N]."""
-    PLAIN_CALLS["fw_post"] += 1
+    cuda_lib.count_plain("fw_post", g0)
     return _fw_loop(_gl_site(g0, g2, fc, dc), g0.shape, F, alpha, starts,
                     bwr, g0.device)
 
@@ -416,16 +434,16 @@ def _k_fw_post(g0, g2, fc, dc, F, alpha, starts, bwr):
     :_k2_fw_post. Bound by bytes (three slabs read, one written)."""
     if not g0.is_cuda:
         return _fw_post_plain(g0, g2, fc, dc, F, alpha, starts, bwr)
-    bs, nb, N = _check_stream_args("fw_post", g0, g2, fc, dc, F, alpha)
+    bs, nb, N, sfx = _check_stream_args("fw_post", g0, g2, fc, dc, F, alpha)
     cuda_lib.require(starts, "fw_post.starts", _f32, (2, nb, N))
     cuda_lib.require(bwr, "fw_post.bwr", _f32, (bs, nb, N))
     out = torch.empty((bs, nb, N), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_fw_post(
+    rc = getattr(cuda_lib.load(), "ngsf_fw_post" + sfx)(
         g0.data_ptr(), g2.data_ptr(), fc.data_ptr(), dc.data_ptr(),
         F.data_ptr(), alpha.data_ptr(), starts.data_ptr(), bwr.data_ptr(),
         out.data_ptr(), bs, nb, N, cuda_lib.stream())
-    cuda_lib.check(rc, "fw_post")
-    LAUNCHES["fw_post"] += 1
+    cuda_lib.check(rc, "fw_post" + sfx)
+    LAUNCHES["fw_post" + sfx] += 1
     return out
 
 

@@ -135,8 +135,10 @@ def run_em_restarts(gl, dist, states: EMState, opts: EMOptions,
     if R < 2:
         raise ValueError(f"run_em_restarts needs 2 or more replicates, got "
                          f"{R}: one replicate is models/em.run_em")
+    # (gl_bf16 changes nothing here: the flattened route reads emission
+    # slabs, and its freq M-step float32 gl slabs, as in the JAX package)
     _refuse(opts.freq_est, opts.e_prob_calc, R, opts.numerics,
-            opts.block_size, opts.gl_bf16)
+            opts.block_size)
     dev = _device(device)
     dtype = states.indF.dtype
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)

@@ -10,7 +10,17 @@ site (one thread per site for the window):
   maf_sums_grad   (cn, cd, dcn, dcd) at a given freq
   maf_window      M virtual passes on the linearised per-site model
   maf_exact       the exact fixed point, up to ITER_MAX + 1 passes
-  maf_macro       the whole macro schedule in one launch, on [S, N] rows
+  maf_macro       the whole macro schedule in one launch, on [S, N] rows;
+                  on the [bs * nb, N] view of the slabs it is the slab
+                  kernel of the JAX package's _run_macro_slab (macro_slab,
+                  counted as maf_macro_slab)
+
+The gl slabs may be stored in bfloat16 (models/hmm_kernels.py
+prepare_gl_inputs, gl_dtype): maf_state_grad, maf_sums_grad and
+maf_macro then run their bfloat16 export ("_bf16", counted under that
+name), which upcasts at load; the posterior and all the arithmetic stay
+float32. maf_exact reads float32 gl only: the exact route keeps float32
+gl for its freq M-step, as the JAX package does (models/em.py).
 
 The emission-slab route of a single run (the LD path) has no gl slabs: its
 freq M-step, ``est_maf_rows``, reads the linear gl planes g0 / g2 [S, N]
@@ -51,7 +61,9 @@ _HET_FLOOR = 1e-15  # linear het floor, calc_HWE F==1 (gen_func.cpp:946-956)
 
 def _planes_plain(g0, g2, F):
     """Pass-invariant Horner planes of every cell and T = sum_n (2 - F):
-    (dict of [bs, nb, N] tensors, T [bs, nb])."""
+    (dict of [bs, nb, N] tensors, T [bs, nb]). bfloat16 gl is upcast at
+    load, as the kernels do."""
+    g0, g2 = cuda_lib.upcast(g0), cuda_lib.upcast(g2)
     g1 = 1.0 - g0 - g2
     zero = torch.zeros_like(F)
     two_m_F = 2.0 - F
@@ -101,13 +113,17 @@ def _init_state(shape, device):
 
 
 def _check_slabs(name, g0, g2, p):
+    """Raise unless the slabs fit the kernel; returns (bs, nb, N, the
+    export suffix of the gl slabs' dtype)."""
+    sfx = cuda_lib.gl_suffix(g0, g2, name)
     bs, nb, N = g0.shape
     for nm, t in (("g0", g0), ("g2", g2), ("p", p)):
-        cuda_lib.require(t, f"{name}.{nm}", _f32, (bs, nb, N))
+        cuda_lib.require(t, f"{name}.{nm}", _f32 if nm == "p" else g0.dtype,
+                         (bs, nb, N))
         if t.device != g0.device:
             raise ValueError(f"{name}.{nm}: on {t.device}, slabs on "
                              f"{g0.device}")
-    return bs, nb, N
+    return bs, nb, N, sfx
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +135,7 @@ def _state_grad_plain(g0, g2, p, K0, tally=None):
     """Plain version of csrc/maf_state_grad.cu -> [8, bs, nb]. tally: a
     list that receives, per pass, the number of sites still active (the
     work this input needs; a converged site's passes are no-ops)."""
-    PLAIN_CALLS["maf_state_grad"] += 1
+    cuda_lib.count_plain("maf_state_grad", g0)
     q, T = _planes_plain(g0, g2, p)
     st = _init_state(g0.shape[:2], g0.device)
     for k in range(K0):
@@ -140,13 +156,13 @@ def _k_maf_state_grad(g0, g2, p, K0):
     cells' planes stay in registers across the passes."""
     if not g0.is_cuda:
         return _state_grad_plain(g0, g2, p, K0)
-    bs, nb, N = _check_slabs("maf_state_grad", g0, g2, p)
+    bs, nb, N, sfx = _check_slabs("maf_state_grad", g0, g2, p)
     out = torch.empty((8, bs, nb), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_maf_state_grad(
+    rc = getattr(cuda_lib.load(), "ngsf_maf_state_grad" + sfx)(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
         N, int(K0), cuda_lib.stream())
-    cuda_lib.check(rc, "maf_state_grad")
-    LAUNCHES["maf_state_grad"] += 1
+    cuda_lib.check(rc, "maf_state_grad" + sfx)
+    LAUNCHES["maf_state_grad" + sfx] += 1
     return out
 
 
@@ -157,7 +173,7 @@ def _k_maf_state_grad(g0, g2, p, K0):
 
 def _sums_grad_plain(g0, g2, p, fq):
     """Plain version of csrc/maf_sums_grad.cu -> [4, bs, nb]."""
-    PLAIN_CALLS["maf_sums_grad"] += 1
+    cuda_lib.count_plain("maf_sums_grad", g0)
     q, T = _planes_plain(g0, g2, p)
     return torch.stack(_sums_plain(q, T, fq, True))
 
@@ -169,14 +185,14 @@ def _k_maf_sums_grad(g0, g2, p, fq):
     :_run_sums_grad_slab. Bound by bytes (three slabs read once)."""
     if not g0.is_cuda:
         return _sums_grad_plain(g0, g2, p, fq)
-    bs, nb, N = _check_slabs("maf_sums_grad", g0, g2, p)
+    bs, nb, N, sfx = _check_slabs("maf_sums_grad", g0, g2, p)
     cuda_lib.require(fq, "maf_sums_grad.fq", _f32, (bs, nb))
     out = torch.empty((4, bs, nb), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_maf_sums_grad(
+    rc = getattr(cuda_lib.load(), "ngsf_maf_sums_grad" + sfx)(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), fq.data_ptr(),
         out.data_ptr(), bs * nb, N, cuda_lib.stream())
-    cuda_lib.check(rc, "maf_sums_grad")
-    LAUNCHES["maf_sums_grad"] += 1
+    cuda_lib.check(rc, "maf_sums_grad" + sfx)
+    LAUNCHES["maf_sums_grad" + sfx] += 1
     return out
 
 
@@ -283,10 +299,14 @@ def _k_maf_exact(g0, g2, p, snap):
 
     Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py:_run. Bound by
     operations (up to ITER_MAX + 1 passes over cells read once); the
-    cells stay in registers and each site stops at its own convergence."""
+    cells stay in registers and each site stops at its own convergence.
+    Reads float32 gl only (the JAX kernel reads float32 tiles)."""
+    if g0.dtype != _f32 or g2.dtype != _f32:
+        raise TypeError(f"maf_exact reads float32 gl, got {g0.dtype} and "
+                        f"{g2.dtype}")
     if not g0.is_cuda:
         return _exact_plain(g0, g2, p, snap)
-    bs, nb, N = _check_slabs("maf_exact", g0, g2, p)
+    bs, nb, N, _ = _check_slabs("maf_exact", g0, g2, p)
     out = torch.empty((bs, nb), dtype=_f32, device=g0.device)
     rc = cuda_lib.load().ngsf_maf_exact(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
@@ -301,14 +321,15 @@ def _k_maf_exact(g0, g2, p, snap):
 # ---------------------------------------------------------------------------
 
 
-def _macro_rows_plain(g0, g2, p, K0, Ms, tally=None):
+def _macro_rows_plain(g0, g2, p, K0, Ms, tally=None, name="maf_macro"):
     """Plain version of csrc/maf_macro.cu: g0 / g2 / p [S, N] -> freq [S].
     K0 real passes, then per round M_r in Ms one gradient evaluation and
     M_r virtual passes (kernel A, then windows and kernel B, on rows).
     tally: a dict that receives, under "pass", "grad" and "step", the
     number of sites still active at each real pass, gradient evaluation
-    and virtual pass (the work this input needs)."""
-    PLAIN_CALLS["maf_macro"] += 1
+    and virtual pass (the work this input needs). name: the kernel the
+    call counts for (maf_macro, or maf_macro_slab on the slab view)."""
+    cuda_lib.count_plain(name, g0)
     count = (lambda kind, st: tally[kind].append(st[3].sum())) if (
         tally is not None) else (lambda kind, st: None)
     q, T = _planes_plain(g0, g2, p)
@@ -326,6 +347,23 @@ def _macro_rows_plain(g0, g2, p, K0, Ms, tally=None):
     return st[0]
 
 
+def _macro(name, g0, g2, p, K0, Ms):
+    """csrc/maf_macro.cu on [rows, N] rows (float32 or bfloat16 g0 / g2,
+    float32 p) -> freq [rows], counted under `name` (+ the gl suffix)."""
+    if not g0.is_cuda:
+        return _macro_rows_plain(g0, g2, p, K0, Ms, name=name)
+    S, _, N, sfx = _check_slabs(name, g0[:, None], g2[:, None], p[:, None])
+    Ms = tuple(int(m) for m in Ms)
+    out = torch.empty((S,), dtype=_f32, device=g0.device)
+    rc = getattr(cuda_lib.load(), "ngsf_maf_macro" + sfx)(
+        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), S, N,
+        int(K0), (ctypes.c_int * max(1, len(Ms)))(*Ms), len(Ms),
+        cuda_lib.stream())
+    cuda_lib.check(rc, name + sfx)
+    LAUNCHES[name + sfx] += 1
+    return out
+
+
 def _k_maf_macro(g0, g2, p, K0, Ms):
     """The macro-stepped est_maf per site on [S, N] rows (g0, g2 linear
     gl planes, p the posterior as read): freq [S]. K0 real passes, then
@@ -337,18 +375,25 @@ def _k_maf_macro(g0, g2, p, K0, Ms):
     operations (the passes and gradient rounds over every cell); the
     cells' planes and the per-site state stay in registers through the
     schedule."""
-    if not g0.is_cuda:
-        return _macro_rows_plain(g0, g2, p, K0, Ms)
-    S, _, N = _check_slabs("maf_macro", g0[:, None], g2[:, None], p[:, None])
-    Ms = tuple(int(m) for m in Ms)
-    out = torch.empty((S,), dtype=_f32, device=g0.device)
-    rc = cuda_lib.load().ngsf_maf_macro(
-        g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), S, N,
-        int(K0), (ctypes.c_int * max(1, len(Ms)))(*Ms), len(Ms),
-        cuda_lib.stream())
-    cuda_lib.check(rc, "maf_macro")
-    LAUNCHES["maf_macro"] += 1
-    return out
+    return _macro("maf_macro", g0, g2, p, K0, Ms)
+
+
+def _k_maf_macro_slab(g0, g2, p_slab, K0, Ms):
+    """The macro-stepped est_maf per site on the gl slabs g0 / g2
+    [bs, nb, N] (float32 or bfloat16) and the raw posterior slab:
+    freq [bs, nb], pad sites included (the caller cuts them).
+
+    Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py
+    :_run_macro_slab. The port's slabs are already rows of N cells (row
+    r * nb + j is site j * bs + r), so this is csrc/maf_macro.cu on the
+    [bs * nb, N] view of the slabs, its bfloat16 export for bfloat16
+    slabs; its plain version is _macro_rows_plain on the same view. It
+    counts as maf_macro_slab (maf_macro_slab_bf16). Bound as maf_macro,
+    with 8 bytes a cell read under bfloat16 instead of 12."""
+    bs, nb, N = g0.shape
+    rows = lambda t: t.reshape(bs * nb, N)
+    return _macro("maf_macro_slab", rows(g0), rows(g2), rows(p_slab), K0,
+                  Ms).reshape(bs, nb)
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +407,9 @@ def _site_vector(x, prep2):
 
 
 def est_maf_slab(prep2, p_slab, macro=True):
-    """Per-site MAF from the gl slabs + the RAW posterior slab that
-    posteriors_fused(..., return_slab=True) emitted. Returns freq [S]
-    float32.
+    """Per-site MAF from the gl slabs (float32 or bfloat16) + the RAW
+    posterior slab that posteriors_fused(..., return_slab=True) emitted.
+    Returns freq [S] float32.
 
     Kernel A runs the K0 real passes and the first gradient evaluation;
     each round then advances through its virtual window (maf_window), and
@@ -395,11 +440,33 @@ def est_maf_slab(prep2, p_slab, macro=True):
     return _site_vector(st[0], prep2)
 
 
+def macro_slab(prep2, p_slab, macro=True):
+    """Per-site MAF from the gl slabs (float32 or bfloat16) + the RAW
+    posterior slab, the whole macro schedule in one launch
+    (_k_maf_macro_slab): the counterpart of the JAX package's
+    maf_pallas._run_macro_slab followed by est_maf_slab's unpack. Returns
+    freq [S] float32; pad sites are cut (the JAX kernel writes the
+    sentinel 2.0 there).
+
+    It computes what est_maf_slab computes, with the same arithmetic.
+    No EM route calls it, as no JAX route calls _run_macro_slab (its
+    split, est_maf_slab, took its place). macro: as in est_maf_slab;
+    raises ValueError where there is no schedule (N < 32)."""
+    if macro is True:
+        macro = macro_schedule(prep2["N"])
+    if not macro:
+        raise ValueError("macro_slab requires a macro schedule")
+    K0, M = macro
+    return _site_vector(_k_maf_macro_slab(prep2["g0"], prep2["g2"], p_slab,
+                                          K0, macro_rounds(K0, M)), prep2)
+
+
 def est_maf_exact(prep2, p_slab, snap=True):
     """Per-site MAF by the exact damped fixed point from the gl slabs +
     the raw posterior slab; snap=True reads the posterior through
     check_interv, as the exact tiers of the reference do. Returns freq
-    [S] float32. Serves N < 32, where est_maf_slab has no schedule."""
+    [S] float32. Serves N < 32, where est_maf_slab has no schedule. The
+    slabs must be float32 (maf_exact)."""
     return _site_vector(
         _k_maf_exact(prep2["g0"], prep2["g2"], p_slab, snap), prep2)
 

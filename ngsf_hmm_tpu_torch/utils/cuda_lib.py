@@ -24,9 +24,13 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-# The four chain-kernel sources each export two instantiations of one
-# template: the gl-layout kernel and the emission-slab ("_v1") kernel.
+# The four chain-kernel sources each export three instantiations of one
+# template: the gl-layout kernel on float32 and on bfloat16 ("_bf16") gl
+# slabs, and the emission-slab ("_v1") kernel. maf_state_grad, maf_sums_grad
+# and maf_macro export a float32 and a bfloat16 gl instantiation.
 SOURCES = (
     "block_transfer.cu",
     "block_transfer_grad.cu",
@@ -40,7 +44,7 @@ SOURCES = (
     "maf_exact.cu",
     "maf_macro.cu",
 )
-HEADERS = ("hmm_common.cuh", "maf_common.cuh")
+HEADERS = ("gl_load.cuh", "hmm_common.cuh", "maf_common.cuh")
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
 # multiply-adds differently.
@@ -74,6 +78,12 @@ _SIGNATURES = {
     "ngsf_maf_exact": [_P] * 4 + [_L, _I, _I, _P],
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P, _I, _P],
 }
+# the bfloat16 gl exports take the same arguments as their float32 ones
+_SIGNATURES.update({
+    f"{name}_bf16": _SIGNATURES[name] for name in (
+        "ngsf_block_transfer", "ngsf_block_transfer_grad", "ngsf_bw_sites",
+        "ngsf_fw_post", "ngsf_maf_state_grad", "ngsf_maf_sums_grad",
+        "ngsf_maf_macro")})
 
 
 def reset_counts():
@@ -166,14 +176,36 @@ def load(flags=NVCC_FLAGS):
 
 
 def stream():
-    import torch
-
     return torch.cuda.current_stream().cuda_stream
 
 
 def check(rc, name):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (error {rc})")
+
+
+def gl_suffix(g0, g2, name):
+    """The export suffix of a kernel that reads gl slabs g0 / g2: "" for
+    float32 slabs, "_bf16" for bfloat16 ones (upcast at load). The
+    launch counts use the same suffix. Raises for any other dtype, or
+    for g0 and g2 of different dtypes."""
+    sfx = {torch.float32: "", torch.bfloat16: "_bf16"}.get(g0.dtype)
+    if sfx is None or g2.dtype != g0.dtype:
+        raise TypeError(f"{name}: gl slabs must be both float32 or both "
+                        f"bfloat16, got {g0.dtype} and {g2.dtype}")
+    return sfx
+
+
+def count_plain(name, g0):
+    """Counts one call of a plain version that reads the gl slab g0, under
+    its kernel's name with "_bf16" for bfloat16 slabs."""
+    PLAIN_CALLS[name + ("_bf16" if g0.dtype == torch.bfloat16 else "")] += 1
+
+
+def upcast(t):
+    """A bfloat16 gl slab as float32 (exact), as the kernels load it; any
+    other dtype as it is (the plain versions also run in float64)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def require(t, name, dtype, shape=None):

@@ -109,7 +109,6 @@ def test_run_em_invariants_and_memory(runs):
 
 @pytest.mark.parametrize("kw", [
     dict(numerics="log"), dict(numerics="linear"), dict(block_size="auto"),
-    dict(gl_bf16=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_options_raise(runs, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,5 +1,6 @@
-"""The row-layout est_maf of the port (the LD path's freq M-step) against the
-JAX package, on the CPU.
+"""The row-layout est_maf of the port (the LD path's freq M-step) and the
+one-launch slab est_maf (macro_slab, kernel 9) against the JAX package, on
+the CPU.
 
 ngsf_hmm_tpu_torch.ops.maf_kernels.est_maf_rows reads the linear gl planes
 g0 / g2 [S, N] and the snapped posterior [S, N] as rows: with a macro
@@ -8,6 +9,11 @@ version, _macro_rows_plain), without one (N < 32) maf_exact runs on the
 [S, 1, N] row view. Held against the JAX est_maf_pallas on tiles
 (_run_macro / _run in Pallas interpret mode) and against XLA est_maf, in
 float32, with inputs made by numpy from fixed seeds.
+
+ngsf_hmm_tpu_torch.ops.maf_kernels.macro_slab runs the same kernel on the
+[bs * nb, N] view of the gl slabs (float32 or bfloat16) and the raw
+posterior slab; it is held against the JAX kernel _run_macro_slab in
+interpret mode on the same values in the JAX layout.
 
 Tolerance: freq atol 2e-5, the JAX package's pallas-vs-XLA gate
 (tests/test_maf.py). The two sides differ in the order of the sum over
@@ -20,8 +26,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from ngsf_hmm_tpu.models import hmm_pallas as j_hp
 from ngsf_hmm_tpu.ops import maf as j_maf
 from ngsf_hmm_tpu.ops import maf_pallas as j_mp
+from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
 from ngsf_hmm_tpu_torch.ops import maf as t_maf
 from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
 from ngsf_hmm_tpu_torch.utils.cuda_lib import PLAIN_CALLS
@@ -123,3 +131,57 @@ def test_gl_rows_are_the_linear_planes():
                                rtol=1e-6)
     np.testing.assert_allclose(g2.numpy(), np.exp(gl[..., 2].numpy()),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_macro_slab_matches_pallas_run_macro_slab(dtype):
+    """macro_slab (here the plain version of csrc/maf_macro.cu on the
+    [bs * nb, N] slab view) against the JAX kernel
+    maf_pallas._run_macro_slab in interpret mode, on gl slabs of `dtype`
+    holding the same values and the same posterior, S = 300, N = 40
+    (schedule (16, (8, 16, 32, 29))): atol 2e-5. Both layouts have pad
+    sites: the JAX kernel writes the sentinel 2.0 there, the port cuts
+    them, as est_maf_slab does."""
+    S, N = 300, 40
+    gl, p = _case(300, S, N)
+    K0, M = t_maf.macro_schedule(N)
+    Ms = tuple(t_maf.macro_rounds(K0, M))
+    jp = j_hp.prepare_gl_inputs(jnp.asarray(gl), jnp.zeros(S),
+                                gl_dtype=getattr(jnp, dtype))
+    out = np.asarray(j_mp._run_macro_slab(
+        jp["g0"], jp["g2"], j_hp.pack_sites2(jnp.asarray(p), jp), jp["C"],
+        jp["nb_p"], jp["G"], jp["bs"], jp["nb"], S, N, jp["bs_pad"], K0,
+        Ms))[:, 0, :]
+    sites = np.swapaxes(out, 0, 1)[:jp["nb"], :jp["bs"]].reshape(-1)
+    assert np.all(sites[S:] == 2.0) and np.all(out[jp["bs"]:] == 2.0)
+    tp = hk.prepare_gl_inputs(torch.as_tensor(gl), torch.zeros(S),
+                              gl_dtype=getattr(torch, dtype))
+    assert tp["nb"] * tp["bs"] > S  # the port's layout pads too
+    got = mk.macro_slab(tp, hk.pack_sites2(torch.as_tensor(p), tp))
+    assert got.shape == (S,) and got.dtype == torch.float32
+    observed(f"macro_slab vs _run_macro_slab ({dtype})", got, sites[:S])
+    np.testing.assert_allclose(got.numpy(), sites[:S], atol=2e-5)
+
+
+def test_macro_slab_equals_est_maf_slab():
+    """On the CPU macro_slab and est_maf_slab run the same arithmetic on
+    the same slabs (one schedule in one function, or kernel A, windows and
+    kernel B): equal freqs, float32 and bfloat16 (S = 500, N = 33). Each
+    counts its plain version under its own name, and without a schedule
+    (N < 32) macro_slab raises."""
+    S, N = 500, 33
+    gl, p = _case(33, S, N)
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        tp = hk.prepare_gl_inputs(torch.as_tensor(gl), torch.zeros(S),
+                                  gl_dtype=dtype)
+        slab = hk.pack_sites2(torch.as_tensor(p), tp)
+        calls = dict(PLAIN_CALLS)
+        got = mk.macro_slab(tp, slab)
+        assert PLAIN_CALLS["maf_macro_slab" + sfx] == calls.get(
+            "maf_macro_slab" + sfx, 0) + 1
+        assert PLAIN_CALLS["maf_macro"] == calls.get("maf_macro", 0)
+        assert torch.equal(got, mk.est_maf_slab(tp, slab))
+    small = hk.prepare_gl_inputs(torch.as_tensor(gl[:, :8]), torch.zeros(S))
+    with pytest.raises(ValueError, match="macro schedule"):
+        mk.macro_slab(small, hk.pack_sites2(torch.as_tensor(p[:, :8]),
+                                            small))
