@@ -20,7 +20,16 @@ needs one CUDA device and nvcc. It
      and slab est_maf kernels at the main path's shape, on bfloat16 slabs
      of the same gl; the one-launch slab est_maf (maf_macro_slab, float32
      and bfloat16 slabs) at the main path's shape and at the maf_macro
-     shapes, also against est_maf_slab,
+     shapes, also against est_maf_slab; the combine bit-equal to its plain
+     version (candidate 0 of B = 2 equal to B = 1), timed at every shape
+     the streams are checked at (the restart path's nb = 136 among them);
+     Viterbi with zero path mismatches (both variants; the compat one
+     only at the main shape, where the plain loop takes minutes), its log
+     line beside the forward chain's derived floor and that chain's own
+     measured time, and at 20,011 x 100 and 2,003 x 263 to 3,001 (every
+     group of individuals a forward CTA holds) with chromosome breaks,
+     forced (init_logits, final_state) and traceback blocks of 256, 1 and
+     77 sites,
   4. drives seven paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
@@ -74,6 +83,51 @@ import numpy as np
 # outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+
+# Viterbi's forward chain floor, derived, not measured: dependent float32
+# operations a site (add, max, add, add, max, add under the in-place
+# update; add, max, add textbook) at an assumed 4 cycles each, over the
+# card's highest SM clock (nvidia-smi clocks.max.sm, read in main). The
+# log prints it beside the measured time of that chain alone (probe_chain).
+CHAIN_CYCLES = {True: 24, False: 12}
+SM_CLOCK_MHZ = 1980.0
+
+
+def chain_floor_ms(S, compat):
+    return S * CHAIN_CYCLES[compat] / (SM_CLOCK_MHZ * 1e6) * 1e3
+
+
+# Viterbi's forward chain alone, from registers: the forward kernel's own
+# site step (vt_site of csrc/viterbi.cu) S times, its back-pointer bits
+# packed 16 sites a word, one chain lane per individual (lane 0 of a CTA,
+# as in the forward kernel), no loads and no staging. Built and timed by
+# probe_chain.
+CHAIN_PROBE_CU = r"""
+#include "viterbi.cu"
+template <bool COMPAT>
+__global__ void chain(const float* q, float* out, int S) {
+    if (threadIdx.x) return;
+    q += 6 * blockIdx.x;
+    const Quad<float> lt = {q[0], q[1], q[2], q[3]};
+    const Pair<float> em = {q[4], q[5]};
+    float v0 = 0.f, v1 = 0.f;
+    unsigned acc = 0;
+    for (int s = 0; s < S; s += 16) {  // S rounded up to 16 sites
+        unsigned w = 0;
+#pragma unroll
+        for (int u = 0; u < 16; ++u) vt_site<float, COMPAT>(lt, em, u, v0, v1, w);
+        acc ^= w;
+    }
+    out[blockIdx.x] = v0 + v1 + (float)acc;
+}
+extern "C" int chain_probe(const float* q, float* out, int S, int N,
+                           int compat, void* st) {
+    if (compat) chain<true><<<N, 32, 0, (cudaStream_t)st>>>(q, out, S);
+    else chain<false><<<N, 32, 0, (cudaStream_t)st>>>(q, out, S);
+    return (int)cudaGetLastError();
+}
+"""
+
 
 # Gates against the plain versions (same arithmetic in the same order; what
 # is left is expf/logf against torch.exp/torch.log).
@@ -227,7 +281,11 @@ def simulate(S, N, seed, n_chrom=3):
 
 class Timer:
     """Device time of a callable: CUDA events around `reps` calls after one
-    warm-up (host clock on the CPU rehearsal)."""
+    warm-up (host clock on the CPU rehearsal). The calls queue behind a
+    QUEUE_MS device sleep, so that a kernel shorter than its wrapper's
+    host time is timed back to back, not with the host's gaps."""
+
+    QUEUE_MS = 5.0
 
     def __init__(self, torch, dev):
         self.torch, self.cuda = torch, dev.type == "cuda"
@@ -244,6 +302,7 @@ class Timer:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(int(self.QUEUE_MS * 1e3 * SM_CLOCK_MHZ))
         start.record()
         for _ in range(reps):
             out = fn()
@@ -453,6 +512,39 @@ def probe_fmad(torch, prep, p_slab, timer, label):
         f"{d:.3g}")
 
 
+_chain_lib = []
+
+
+def probe_chain(torch, timer, S, N, compat):
+    """Device time of Viterbi's forward chain alone (CHAIN_PROBE_CU) at S
+    sites and N individuals, built with the package's nvcc flags. A
+    measurement only: nothing is gated."""
+    import ctypes
+
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    if not _chain_lib:
+        d = cuda_lib.build_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        src, so = d / "chain_probe.cu", d / "chain_probe.so"
+        src.write_text(CHAIN_PROBE_CU)
+        subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
+                        "-I", str(cuda_lib.CSRC), str(src), "-o", str(so)],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        lib.chain_probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        _chain_lib.append(lib)
+    lib = _chain_lib[0]
+    g = torch.Generator().manual_seed(S)
+    q = (-torch.rand((N, 6), generator=g) - 0.1).cuda()
+    out = torch.empty(N, device="cuda")
+    _, ms = timer(lambda: cuda_lib.check(lib.chain_probe(
+        q.data_ptr(), out.data_ptr(), S, N, int(compat),
+        cuda_lib.stream()), "chain_probe"), reps=3)
+    return ms
+
+
 def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
     """What the LD path's freq M-step reads at this shape: the linear gl
     planes (maf_kernels.gl_rows) and the snapped posterior [S, N] that the
@@ -631,9 +723,9 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
         fail(f"block_transfer{sfx} [{label}]: max diff {err} > {ATOL}")
     record("block_transfer" + sfx, err, ms, pms, src + 5 * nb * N * 4,
            flops("block_transfer"))
-    del kb, pb, p4
+    del pb, p4
 
-    # ---- cross-block combine
+    # ---- cross-block combine (two levels: chunks of L blocks)
     A_r = k4.permute(2, 0, 1, 3)
     (st_k, en_k, ll_k), ms = timer(lambda: hk._combine_blocks(A_r, F1))
     (st_p, en_p, ll_p), pms = timer(
@@ -644,15 +736,33 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
               float((norm(en_k) - norm(en_p)).abs().max()))
     ll_err = float(((ll_k - ll_p).abs() / ll_p.abs()).max())
     fwbw = float((ll_k[0] - ll_k[1]).abs().max())
-    log(f"[{label}] combine_blocks: loglik rel diff {ll_err:.3g}, "
+    same = all(torch.equal(a, b) for a, b in
+               zip((st_k, en_k, ll_k), (st_p, en_p, ll_p)))
+    # candidate 0 of B = 2 (the transfer kernel's B = 2 products) against
+    # B = 1, and a second call on the same bits
+    two = hk._combine_blocks(kb.permute(2, 0, 1, 3), F2)
+    b_same = all(torch.equal(a[..., :1, :], b)
+                 for a, b in zip(two, (st_k, en_k, ll_k)))
+    again = all(torch.equal(a, b) for a, b in
+                zip(hk._combine_blocks(A_r, F1), (st_k, en_k, ll_k)))
+    L = hk.combine_chunk_len(nb)
+    log(f"[{label}] combine_blocks (nb={nb}, chunks of L={L}: "
+        f"{-(-nb // L)}): kernel {ms:.4f} ms, bit-equal to the plain "
+        f"version {same}, candidate 0 of B = 2 equal to B = 1 {b_same}, "
+        f"repeat equal {again}; loglik rel diff {ll_err:.3g}, "
         f"|ll_f - ll_b| max {fwbw:.3g}")
     if err > ATOL or ll_err > LL_RTOL or fwbw > 1e-3:
         fail(f"combine_blocks [{label}]: vectors {err}, logliks {ll_err}, "
              f"fw/bw {fwbw}")
+    if dev.type == "cuda" and not (same and b_same and again):
+        fail(f"combine_blocks [{label}]: not bit-equal (plain {same}, "
+             f"B = 2 {b_same}, repeat {again})")
     if not sfx:
         record("combine_blocks", err, ms, pms,
                (5 + 4) * nb * N * 4 + 2 * N * 8, 2 * nb * N * 12)
-    del k4, A_r
+    rec.results.setdefault("combine_blocks", {"max_abs_err": 0.0}).setdefault(
+        "ms_by_shape", {})[f"{label} nb={nb} N={N}"] = ms
+    del k4, kb, A_r, two
 
     # ---- backward ratio slab
     ends = en_k[:, :, 0].transpose(0, 1).contiguous()
@@ -786,9 +896,19 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
         finite("viterbi", sk, sp)
         mism = int((pk != pp).sum())
         s_err = float(((sk - sp).abs() / sp.abs()).max())
+        floor = chain_floor_ms(S, compat)
+        bare = ""
+        if dev.type == "cuda":
+            b_ms = probe_chain(torch, timer, S, N, compat)
+            bare = (f"; the chain alone from registers {b_ms:.3f} ms "
+                    f"({b_ms * 1e3 * SM_CLOCK_MHZ / (-(-S // 16) * 16):.1f} "
+                    f"cycles a site at "
+                    f"{SM_CLOCK_MHZ:.0f} MHz, measured)")
         log(f"[{label}] viterbi compat={compat}: path mismatches {mism}, "
             f"score rel diff {s_err:.3g}, IBD share "
-            f"{float(pk.float().mean()):.4f}")
+            f"{float(pk.float().mean()):.4f}; kernel {ms_c:.3f} ms against "
+            f"a derived chain floor of {floor:.3f} ms ({S} sites x "
+            f"{CHAIN_CYCLES[compat]} cycles at {SM_CLOCK_MHZ:.0f} MHz){bare}")
         if mism or s_err > LL_RTOL:
             fail(f"viterbi [{label}] compat={compat}: {mism} path cells "
                  f"differ, score rel diff {s_err}")
@@ -797,8 +917,56 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
         err = max(err, s_err)
         if S > 500_000:
             break  # the per-site plain loop is minutes at this size
-    record("viterbi", err, ms, pms, S * N * (8 + 1 + 1 + 1) + S * 4,
+    # bytes the function must move: the log emissions and distances in,
+    # the int8 path out (its back-pointer scratch is the kernel's own)
+    record("viterbi", err, ms, pms, S * N * (8 + 1) + S * 4 + N * 12,
            S * N * 40)
+
+
+def check_viterbi_hooks(torch, dev, S, N, seed):
+    """Viterbi against its plain version at S sites with chromosome breaks
+    (S not a multiple of the traceback blocks below): both variants, the
+    stationary init and forced (init_logits, final_state), traceback
+    blocks of the default length, 1 site and 77 sites. Zero path
+    mismatches, scores bit-equal. N sets how many individuals share a CTA
+    of the forward kernel (1 up to 132 on a 132-SM card, 32 from 2,113)."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+
+    f32 = torch.float32
+    gl, dist, freq, F, alpha = simulate(S, N, seed, n_chrom=3)
+    e_prob = calc_emission(torch.as_tensor(gl).to(dev, f32),
+                           torch.as_tensor(freq).to(dev, f32)[:, None])
+    dist_t = torch.as_tensor(dist).to(dev, f32)
+    F_t = torch.as_tensor(F).to(dev, f32)
+    a_t = torch.as_tensor(alpha).to(dev, f32)
+    rng = np.random.default_rng(seed)
+    il = torch.as_tensor(np.log(rng.dirichlet(np.ones(2), size=N))).to(
+        dev, f32)
+    fs = torch.as_tensor(rng.integers(0, 2, size=N)).to(dev, torch.int8)
+    label = f"viterbi S={S} N={N}"
+    Ls = (thmm.VITERBI_BLOCK, 1, 77)
+    if any(S % L == 0 for L in Ls[::2]):
+        fail(f"[{label}] S is a multiple of a traceback block")
+    for compat in (True, False):
+        for hooks in (dict(init_logits=None, final_state=None),
+                      dict(init_logits=il, final_state=fs)):
+            pp, sp = thmm._viterbi_plain(e_prob, dist_t, F_t, a_t, compat,
+                                         **hooks)
+            for L in Ls:
+                pk, sk = thmm.viterbi(e_prob, dist_t, F_t, a_t,
+                                      compat=compat, L=L, **hooks)
+                mism = int((pk != pp).sum())
+                forced = hooks["final_state"] is not None
+                if mism or not torch.equal(sk, sp) or (
+                        forced and not torch.equal(pk[-1], fs)):
+                    fail(f"[{label}] compat={compat} hooks={forced} L={L}: "
+                         f"{mism} path cells differ, scores equal "
+                         f"{torch.equal(sk, sp)}")
+            log(f"[{label}] compat={compat} init/final forced="
+                f"{hooks['final_state'] is not None}: paths equal to the "
+                f"plain version at traceback blocks {Ls}, scores "
+                f"bit-equal, breaks {int(np.isinf(dist).sum())}")
 
 
 class MafTimer:
@@ -1450,6 +1618,12 @@ def main():
             check=True).stdout.strip().splitlines()[0]
         log(f"[device] {smi}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}")
+        global SM_CLOCK_MHZ
+        SM_CLOCK_MHZ = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()[0])
+        log(f"[device] highest SM clock {SM_CLOCK_MHZ:.0f} MHz")
 
         # ---- phase 2: build
         t0 = time.perf_counter()
@@ -1475,6 +1649,12 @@ def main():
     dist_c[step::step] = np.inf  # chromosome breaks every ~100k sites
     check_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c, "check",
                   results, reference=True)
+    # N = 100 and, at fewer sites, every other number of individuals a
+    # forward CTA holds on a 132-SM card (2 to 32, the last group partial)
+    hooks = ((211, N), (97, 5)) if args.rehearse else ((20_011, N),) + tuple(
+        (2_003, n) for n in (263, 521, 1_001, 2_011, 3_001))
+    for i, (S_v, N_v) in enumerate(hooks):
+        check_viterbi_hooks(torch, dev, S_v, N_v, args.seed + 13 + i)
     log(f"[check] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1629,6 +1809,8 @@ def main():
             "launches_per_path": {p: int(c.get(name, 0))
                                   for p, c in paths.items()},
         })
+        if "ms_by_shape" in r:
+            kernels[-1]["ms_by_shape"] = r["ms_by_shape"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -476,9 +476,13 @@ def main(argv=None):
                               freq_est=p["freq_est"], device=dev)
     except ValueError as e:
         error("init_output", str(e))
-    if p["verbose"] >= 1:
-        print("==> Calculating initial emission probabilities")
     if p["n_rep"] == 1:
+        # the JAX CLI prints this line only where it builds a single-run
+        # init: n_rep == 1, or streamed restarts with a non-random freq
+        # (ngsf_hmm_tpu/cli.py:695); the port has no streaming, so only
+        # the first clause can hold
+        if p["verbose"] >= 1:
+            print("==> Calculating initial emission probabilities")
         state = init_state(gl_t, freq0, indF0, alpha0,
                            e_prob_calc=p["e_prob"], device=dev, dtype=dtype)
 

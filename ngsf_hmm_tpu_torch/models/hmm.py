@@ -149,8 +149,53 @@ def loglik_value_and_grad(F, alpha, e_prob, dist):
 # ---------------------------------------------------------------------------
 
 
-def _viterbi_plain(e_prob, dist, F, alpha, compat, init_logits, final_state):
-    """Plain version of csrc/viterbi.cu: the per-site loop."""
+# sites per traceback block (csrc/viterbi.cu, _viterbi_plain)
+VITERBI_BLOCK = 256
+_ID_MAP = 2  # the identity map on {0, 1}, coded f(0) | f(1) << 1
+
+
+def _compose(m, g):
+    """m o g for maps on {0, 1} coded f(0) | f(1) << 1 (uint8 tensors)."""
+    return ((m >> (g & 1)) & 1) | (((m >> ((g >> 1) & 1)) & 1) << 1)
+
+
+def _traceback_blocked(codes, last, L):
+    """The Viterbi traceback cut into blocks of L sites.
+
+    codes [S, N] uint8: site s's back-pointers bp0 | bp1 << 1, i.e. the
+    map cur -> bp[s][cur]; last [N] uint8: the state at site S - 1. Maps
+    compose exactly, so each block's maps fold into one (f_k, the state at
+    the site before the block from the state at its last site), a walk
+    over the S / L folded maps gives each block's exit state, and every
+    block then decodes on its own: path[s] = cur, then cur = bp[s][cur]
+    (the step after s = 0 is never used). Pad sites past S are identity
+    maps."""
+    S, N = codes.shape
+    nblk = -(-S // L)
+    pad = torch.full((nblk * L - S, N), _ID_MAP, dtype=torch.uint8,
+                     device=codes.device)
+    codes = torch.cat([codes, pad]).view(nblk, L, N)
+    m = torch.full((nblk, N), _ID_MAP, dtype=torch.uint8,
+                   device=codes.device)
+    for r in range(L):
+        m = _compose(m, codes[:, r])
+    exits = torch.empty_like(m)
+    cur = last
+    for k in range(nblk - 1, -1, -1):
+        exits[k] = cur
+        cur = (m[k] >> cur) & 1
+    path = torch.empty((nblk, L, N), dtype=torch.uint8, device=codes.device)
+    cur = exits
+    for r in range(L - 1, -1, -1):
+        path[:, r] = cur
+        cur = (codes[:, r] >> cur) & 1
+    return path.view(nblk * L, N)[:S].to(torch.int8)
+
+
+def _viterbi_plain(e_prob, dist, F, alpha, compat, init_logits, final_state,
+                   L=VITERBI_BLOCK):
+    """Plain version of csrc/viterbi.cu: the per-site forward loop, then
+    the blocked traceback (_traceback_blocked) with blocks of L sites."""
     PLAIN_CALLS["viterbi"] += 1
     S, N = e_prob.shape[0], e_prob.shape[1]
     lt00, lt01, lt10, lt11 = _log_trans_elems(F, alpha, dist[:, None])
@@ -178,16 +223,12 @@ def _viterbi_plain(e_prob, dist, F, alpha, compat, init_logits, final_state):
     else:
         cur = final_state.to(torch.bool)
     score = torch.where(cur, v1, v0)
-    path = torch.empty((S, N), dtype=torch.int8, device=e_prob.device)
-    for s in range(S - 1, -1, -1):
-        path[s] = cur
-        if s > 0:
-            cur = torch.where(cur, bp1[s], bp0[s])
-    return path, score
+    codes = bp0.to(torch.uint8) | (bp1.to(torch.uint8) << 1)
+    return _traceback_blocked(codes, cur.to(torch.uint8), L), score
 
 
 def viterbi(e_prob, dist, F, alpha, compat=True, init_logits=None,
-            final_state=None):
+            final_state=None, L=VITERBI_BLOCK):
     """Most-probable state path: (path [S, N] int8, best score [N]).
 
     compat=True replicates the reference's production Viterbi
@@ -196,16 +237,21 @@ def viterbi(e_prob, dist, F, alpha, compat=True, init_logits=None,
     state-0 score. compat=False is the textbook variant (the unused
     viterbi_NEW, HMM.cpp:62-95). init_logits [N, 2] / final_state [N]
     override the stationary log q init and force the traceback's start.
+    L: sites per traceback block (any L >= 1 gives the same path).
 
     The JAX package runs this as a lax.scan over the sites
-    (ngsf_hmm_tpu/models/hmm.py:viterbi); on the card it is one CUDA
-    kernel (csrc/viterbi.cu): eight lanes per individual compute the
-    log-transitions of eight sites side by side and then walk them in
-    order, forward pass and traceback alike. It is bound by the latency
-    of the S-step chain. float32 and float64."""
+    (ngsf_hmm_tpu/models/hmm.py:viterbi). On the card (csrc/viterbi.cu)
+    the forward pass stays one serial chain per individual in this order,
+    so scores and back-pointers are the plain version's bits; producer
+    warps compute its log-transitions a tile of sites ahead into shared
+    memory. The traceback folds each block of L sites into one exact map
+    and decodes the blocks in parallel. float32 and float64."""
+    L = int(L)
+    if L < 1:
+        raise ValueError(f"viterbi: traceback block length {L} < 1")
     if not e_prob.is_cuda:
         return _viterbi_plain(e_prob, dist, F, alpha, compat, init_logits,
-                              final_state)
+                              final_state, L=L)
     dt = e_prob.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"viterbi: float32 or float64, got {dt}")
@@ -225,16 +271,20 @@ def viterbi(e_prob, dist, F, alpha, compat=True, init_logits=None,
     if final_state is not None:
         fs = final_state.to(torch.int8).contiguous()
         cuda_lib.require(fs, "viterbi.final_state", torch.int8, (N,))
-    bp = torch.empty((S, N), dtype=torch.uint8, device=dev)
+    # scratch: the back-pointer bits of 16 sites a word, and a byte per
+    # (individual, traceback block), rows padded to 16 bytes
+    bpk = torch.empty((-(-S // 16), N), dtype=torch.int32, device=dev)
+    nbp = -(-(-(-S // L)) // 16) * 16
+    maps = torch.empty((N, nbp), dtype=torch.uint8, device=dev)
     path = torch.empty((S, N), dtype=torch.int8, device=dev)
     score = torch.empty((N,), dtype=dt, device=dev)
     lib = cuda_lib.load()
     fn = lib.ngsf_viterbi_f32 if dt == torch.float32 else lib.ngsf_viterbi_f64
     rc = fn(e_prob.data_ptr(), dist.data_ptr(), F.data_ptr(),
             alpha.data_ptr(), None if il is None else il.data_ptr(),
-            None if fs is None else fs.data_ptr(), bp.data_ptr(),
-            path.data_ptr(), score.data_ptr(), S, N, int(bool(compat)),
-            cuda_lib.stream())
+            None if fs is None else fs.data_ptr(), bpk.data_ptr(),
+            maps.data_ptr(), path.data_ptr(), score.data_ptr(), S, N,
+            int(bool(compat)), L, cuda_lib.stream())
     cuda_lib.check(rc, "viterbi")
     LAUNCHES["viterbi"] += 1
     return path, score

@@ -452,49 +452,107 @@ def _k_fw_post(g0, g2, fc, dc, F, alpha, starts, bwr):
 # ---------------------------------------------------------------------------
 
 
-def _combine_blocks_plain(A_r, F):
-    """Plain version of csrc/combine_blocks.cu (a loop over the blocks)."""
+def combine_chunk_len(nb):
+    """Blocks per chunk of the two-level combine: about sqrt(nb), and
+    enough that the chunks fit one CTA (cuda_lib.COMBINE_MAX_CHUNKS)."""
+    return max(math.isqrt(nb - 1) + 1 if nb > 1 else 1,
+               -(-nb // cuda_lib.COMBINE_MAX_CHUNKS))
+
+
+def _rescaled(x, e):
+    """x (a tuple of tensors) times the power-of-two scale of its largest
+    entry; the scale's exponent is added to e."""
+    mx = x[0]
+    for y in x[1:]:
+        mx = torch.maximum(mx, y)
+    sc, de = _pow2_rescale(_tiny(mx))
+    return tuple(y * sc for y in x), e + de
+
+
+def _combine_blocks_plain(A_r, F, L=None):
+    """Plain version of csrc/combine_blocks.cu, in its order: the chunk
+    products (a loop over the L blocks of a chunk, vectorised over the
+    chunks), the two chunk-level scans, then the reruns inside every chunk
+    (vectorised over the chunks again)."""
     PLAIN_CALLS["combine_blocks"] += 1
     nb, _, B, N = A_r.shape
-    f64 = torch.float64
+    L = combine_chunk_len(nb) if L is None else L
+    C = -(-nb // L)
+    dev, f64 = A_r.device, torch.float64
+    # chunk c holds blocks c * L + r; the pad rows of the last chunk are
+    # never used (masked below)
+    Ap = torch.zeros((C * L, 5, B, N), dtype=_f32, device=dev)
+    Ap[:nb] = A_r
+    Ap = Ap.view(C, L, 5, B, N)
+    valid = (torch.arange(C, device=dev)[:, None] * L
+             + torch.arange(L, device=dev)[None, :] < nb)[:, :, None, None]
+
+    # ---- 1. chunk products from the identity
+    one = torch.ones((C, B, N), dtype=_f32, device=dev)
+    zero = torch.zeros_like(one)
+    P = (one, zero, zero, one)
+    pe = torch.zeros((C, B, N), dtype=torch.int64, device=dev)
+    po = torch.zeros((C, B, N), dtype=f64, device=dev)
+    for r in range(L):
+        a, ok = Ap[:, r], valid[:, r]
+        p00, p01, p10, p11 = P
+        n, e = _rescaled((p00 * a[:, 0] + p01 * a[:, 2],
+                          p00 * a[:, 1] + p01 * a[:, 3],
+                          p10 * a[:, 0] + p11 * a[:, 2],
+                          p10 * a[:, 1] + p11 * a[:, 3]), pe)
+        P = tuple(torch.where(ok, y, p) for y, p in zip(n, P))
+        pe = torch.where(ok, e, pe)
+        po = torch.where(ok, po + a[:, 4].to(f64), po)
+
+    # ---- 2. chunk-level scans from the chain's boundary vectors
     q1 = F.to(_f32)
     q0 = 1.0 - q1
-    starts = torch.empty((nb, 2, B, N), dtype=_f32, device=A_r.device)
-    ends = torch.empty_like(starts)
-
-    v0, v1 = q0, q1
-    ex = torch.zeros((B, N), dtype=torch.int64, device=A_r.device)
-    off = torch.zeros((B, N), dtype=f64, device=A_r.device)
-    for j in range(nb):
-        starts[j, 0], starts[j, 1] = v0, v1
-        a = A_r[j]
-        n0 = v0 * a[0] + v1 * a[2]
-        n1 = v0 * a[1] + v1 * a[3]
-        off = off + a[4].to(f64)
-        sc, e = _pow2_rescale(_tiny(torch.maximum(n0, n1)))
-        v0, v1 = n0 * sc, n1 * sc
-        ex = ex + e
-    ll_f = torch.log(v0.to(f64) + v1.to(f64)) + off + ex.to(f64) * _LN2
-
-    w0 = torch.ones((B, N), dtype=_f32, device=A_r.device)
-    w1 = w0.clone()
+    V = torch.empty((C, 2, B, N), dtype=_f32, device=dev)
+    W = torch.empty_like(V)
+    v = (q0, q1)
+    ex = torch.zeros((B, N), dtype=torch.int64, device=dev)
+    off = torch.zeros((B, N), dtype=f64, device=dev)
+    for c in range(C):
+        V[c, 0], V[c, 1] = v
+        p00, p01, p10, p11 = (y[c] for y in P)
+        ex, off = ex + pe[c], off + po[c]
+        v, ex = _rescaled((v[0] * p00 + v[1] * p10,
+                           v[0] * p01 + v[1] * p11), ex)
+    ll_f = (torch.log(v[0].to(f64) + v[1].to(f64)) + off
+            + ex.to(f64) * _LN2)
+    w = (torch.ones((B, N), dtype=_f32, device=dev),) * 2
     ex = torch.zeros_like(ex)
     off = torch.zeros_like(off)
-    for j in range(nb - 1, -1, -1):
-        ends[j, 0], ends[j, 1] = w0, w1
-        a = A_r[j]
-        b0 = a[0] * w0 + a[1] * w1
-        b1 = a[2] * w0 + a[3] * w1
-        off = off + a[4].to(f64)
-        sc, e = _pow2_rescale(_tiny(torch.maximum(b0, b1)))
-        w0, w1 = b0 * sc, b1 * sc
-        ex = ex + e
-    ll_b = (torch.log(q0.to(f64) * w0.to(f64) + q1.to(f64) * w1.to(f64))
+    for c in range(C - 1, -1, -1):
+        W[c, 0], W[c, 1] = w
+        p00, p01, p10, p11 = (y[c] for y in P)
+        ex, off = ex + pe[c], off + po[c]
+        w, ex = _rescaled((p00 * w[0] + p01 * w[1],
+                           p10 * w[0] + p11 * w[1]), ex)
+    ll_b = (torch.log(q0.to(f64) * w[0].to(f64) + q1.to(f64) * w[1].to(f64))
             + off + ex.to(f64) * _LN2)
-    return starts, ends, torch.stack([ll_f, ll_b])
+
+    # ---- 3. every chunk's blocks, forward from V and backward from W
+    starts = torch.empty((C, L, 2, B, N), dtype=_f32, device=dev)
+    ends = torch.empty_like(starts)
+    v = (V[:, 0], V[:, 1])
+    for r in range(L):
+        starts[:, r, 0], starts[:, r, 1] = v
+        a = Ap[:, r]
+        v, _ = _rescaled((v[0] * a[:, 0] + v[1] * a[:, 2],
+                          v[0] * a[:, 1] + v[1] * a[:, 3]), 0)
+    w = (W[:, 0], W[:, 1])
+    for r in range(L - 1, -1, -1):
+        ends[:, r, 0], ends[:, r, 1] = w
+        a, ok = Ap[:, r], valid[:, r]
+        n, _ = _rescaled((a[:, 0] * w[0] + a[:, 1] * w[1],
+                          a[:, 2] * w[0] + a[:, 3] * w[1]), 0)
+        w = tuple(torch.where(ok, y, z) for y, z in zip(n, w))
+    return (starts.view(C * L, 2, B, N)[:nb],
+            ends.view(C * L, 2, B, N)[:nb], torch.stack([ll_f, ll_b]))
 
 
-def _combine_blocks(A_r, F, v0=None, wT=None):
+def _combine_blocks(A_r, F, v0=None, wT=None, L=None):
     """Cross-block pass over the per-block transfer products.
 
     A_r [nb, 5, B, N] (4 product entries + log-offset, any strides with
@@ -504,18 +562,26 @@ def _combine_blocks(A_r, F, v0=None, wT=None):
 
     The JAX package runs this as two XLA associative scans
     (ngsf_hmm_tpu/models/hmm_pallas.py:_combine_blocks); here it is one
-    small CUDA kernel, one thread per (B, N) chain. It is bound by the
-    latency of that chain, not by bytes.
+    CUDA kernel in two levels (csrc/combine_blocks.cu): the products of
+    chunks of L blocks (default combine_chunk_len(nb), about sqrt(nb)),
+    a scan over the chunks, then every chunk's blocks again from its
+    entering and exit vectors. Each (candidate, individual) is
+    independent of the others.
 
-    v0 / wT (boundary carries of a site shard) wait for site sharding."""
+    v0 / wT (boundary carries of a site shard) wait for site sharding;
+    they would replace the two boundary vectors of the chunk-level
+    scans."""
     if v0 is not None or wT is not None:
         raise NotImplementedError(
             "boundary carries v0/wT (ROADMAP queue 1: 'Streaming', 'parallel/')")
     nb, K, B, N = A_r.shape
     if K != 5:
         raise ValueError(f"combine_blocks: A_r has {K} rows, expected 5")
+    L = combine_chunk_len(nb) if L is None else int(L)
+    if L < 1:
+        raise ValueError(f"combine_blocks: chunk length {L} < 1")
     if not A_r.is_cuda:
-        return _combine_blocks_plain(A_r, F)
+        return _combine_blocks_plain(A_r, F, L=L)
     if A_r.dtype != _f32 or A_r.stride(3) != 1:
         raise ValueError("combine_blocks: A_r must be float32 with unit "
                          "stride over individuals")
@@ -529,7 +595,7 @@ def _combine_blocks(A_r, F, v0=None, wT=None):
     rc = cuda_lib.load().ngsf_combine_blocks(
         A_r.data_ptr(), A_r.stride(0), A_r.stride(1), A_r.stride(2),
         F.data_ptr(), starts.data_ptr(), ends.data_ptr(), lls.data_ptr(),
-        nb, B, N, cuda_lib.stream())
+        nb, L, B, N, cuda_lib.stream())
     cuda_lib.check(rc, "combine_blocks")
     LAUNCHES["combine_blocks"] += 1
     return starts, ends, lls

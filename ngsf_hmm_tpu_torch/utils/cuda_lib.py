@@ -45,12 +45,15 @@ SOURCES = (
     "maf_macro.cu",
 )
 HEADERS = ("gl_load.cuh", "hmm_common.cuh", "maf_common.cuh")
+# chunks of one CTA of the two-level combine: csrc/combine_blocks.cu is
+# built with it (CB_MAXC), models/hmm_kernels.py sizes its chunks by it
+COMBINE_MAX_CHUNKS = 128
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
 # multiply-adds differently.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC", f"-DCB_MAXC={COMBINE_MAX_CHUNKS}",
 )
 
 LAUNCHES = collections.Counter()
@@ -69,9 +72,9 @@ _SIGNATURES = {
     "ngsf_block_transfer_grad_v1": [_P] * 6 + [_I] * 3 + [_P],
     "ngsf_bw_sites_v1": [_P] * 7 + [_I] * 3 + [_P],
     "ngsf_fw_post_v1": [_P] * 8 + [_I] * 3 + [_P],
-    "ngsf_combine_blocks": [_P, _L, _L, _L] + [_P] * 4 + [_I] * 3 + [_P],
-    "ngsf_viterbi_f32": [_P] * 9 + [_I] * 3 + [_P],
-    "ngsf_viterbi_f64": [_P] * 9 + [_I] * 3 + [_P],
+    "ngsf_combine_blocks": [_P, _L, _L, _L] + [_P] * 4 + [_I] * 4 + [_P],
+    "ngsf_viterbi_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "ngsf_viterbi_f64": [_P] * 10 + [_I] * 4 + [_P],
     "ngsf_maf_state_grad": [_P] * 4 + [_L, _I, _I, _P],
     "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],

@@ -169,6 +169,8 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
     assert ok.returncode == 0, ok.stderr
     assert "Final logLkl" in ok.stdout
     assert "Alelle frequencies not estimated" in ok.stdout
+    # one run builds its init state, and says so as the JAX CLI does
+    assert "==> Calculating initial emission probabilities" in ok.stdout
     assert (tmp_path / "run.geno").stat().st_size == S * N * 3 * 8
     lines = (tmp_path / "run.indF").read_text().splitlines()
     assert len(lines) == 1 + N + S

@@ -22,6 +22,10 @@ Gates and why:
 import contextlib
 import io
 import os
+import re
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import jax.numpy as jnp
@@ -40,7 +44,7 @@ from ngsf_hmm_tpu_torch.models import em as t_em
 from ngsf_hmm_tpu_torch.models import restart as t_restart
 from ngsf_hmm_tpu_torch.models.lbfgsb import MVAL
 from test_torch_maf import observed, realistic_gls
-from test_torch_package import _run
+from test_torch_package import REPO, _run
 
 # the suite runs several workers side by side: keep torch to one thread
 torch.set_num_threads(1)
@@ -203,8 +207,12 @@ def test_flat_em_iteration_matches_jax():
 def test_restart_cli_on_cpu(tmp_path):
     """--n_rep 3 --device cpu through the port's CLI (as
     tests/test_restart.py::test_restart_cli_flag): the best replicate's
-    three files, the .indF header its log-likelihood; without --device
-    cpu and without a card the CLI errors out."""
+    three files, the .indF header its log-likelihood; stdout line for line
+    the JAX CLI's (its default tier) on the same inputs and flags, numbers
+    and the package tag masked: in particular no "Calculating initial
+    emission probabilities" line, which the JAX CLI prints only for a
+    single-run init (ngsf_hmm_tpu/cli.py:695); without --device cpu and
+    without a card the CLI errors out."""
     simulate(out=str(tmp_path / "sim"), **SIM)
     args = ("--geno sim.glf.gz --loglkl --pos sim.pos.gz --n_ind 4 "
             "--n_sites 300 --freq r --indF r --seed 5 --n_rep 3 "
@@ -229,6 +237,24 @@ def test_restart_cli_on_cpu(tmp_path):
     assert first == pytest.approx(best, abs=1e-4)
     assert (tmp_path / "multi.geno").stat().st_size == 300 * 4 * 3 * 8
     assert len((tmp_path / "multi.ibd").read_text().splitlines()) > 0
+    assert "Calculating initial emission probabilities" not in out
+
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    for f in ("sim.glf.gz", "sim.pos.gz"):
+        shutil.copy(tmp_path / f, jdir / f)
+    j = subprocess.run(
+        [sys.executable, "-m", "ngsf_hmm_tpu", *args[:-2]],
+        env=dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu"),
+        cwd=jdir, capture_output=True, text=True, timeout=300)
+    assert j.returncode == 0, j.stderr
+
+    def masked(text):
+        text = re.sub(r"\((tpu|torch)\)", "(package)", text)
+        return re.sub(r"nan|[-+]?\d+(\.\d+)?(e[-+]?\d+)?", "#",
+                      text).splitlines()
+
+    assert masked(out) == masked(j.stdout)
     if not torch.cuda.is_available():
         r = _run([a if a != "cpu" else "cuda" for a in args], module=True)
         assert r.returncode != 0 and "no CUDA device" in r.stderr
