@@ -6,6 +6,8 @@
 needs one CUDA device and nvcc. It
   1. requires the card and prints its name and power limit,
   2. builds the CUDA kernels from ngsf_hmm_tpu_torch/csrc (set-up time),
+     then compiles the transfer kernels and kernel A alone to print their
+     registers, spills, residency, waves and SASS loops (probe_build),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -14,12 +16,19 @@ needs one CUDA device and nvcc. It
      are also timed in a second build with FMA contraction on; the
      emission-slab ("_v1") instantiations of the four stream kernels are
      held at the ragged shape and at the restart path's shape; the row
-     est_maf kernel (maf_macro) at 33,333 sites x 40, 32 and 130
-     individuals and at the LD path's shape, and maf_exact on the row view
-     at 20 individuals; the bfloat16 gl exports ("_bf16") of the stream
-     and slab est_maf kernels at the main path's shape, on bfloat16 slabs
-     of the same gl; the one-launch slab est_maf (maf_macro_slab, float32
-     and bfloat16 slabs) at the main path's shape and at the maf_macro
+     est_maf kernel (maf_macro) and the slab est_maf kernels at 33,333
+     sites x 40, 32, 130 and 300 individuals (every lane geometry of
+     kernel A) and maf_macro at the LD path's shape, and maf_exact on the
+     row view at 20 individuals; the stream kernels of all three sources
+     at 3,001 sites x 33 and 34 columns (every copy width of the
+     transfer-and-tangent kernel, also on slabs that start one element
+     into their storage); wherever the transfer-and-tangent kernel is
+     held, also against the product rule carried in float64; at the main
+     and restart shapes that kernel split into its step from registers
+     and its loads alone (probe_transfer); the bfloat16 gl exports
+     ("_bf16") of the stream and slab est_maf kernels at the main path's
+     shape, on bfloat16 slabs of the same gl; the one-launch slab est_maf
+     (maf_macro_slab, float32 and bfloat16 slabs) at the main path's shape and at the maf_macro
      shapes, also against est_maf_slab; the combine bit-equal to its plain
      version (candidate 0 of B = 2 equal to B = 1), timed at every shape
      the streams are checked at (the restart path's nb = 136 among them);
@@ -59,6 +68,11 @@ needs one CUDA device and nvcc. It
   5. runs the CLI four times at a small size (--freq e, freq_est 1; once
      more with --n_rep 3; once with --freq_est 2 --e_prob 2; once with
      --gl_bf16 1).
+--against LOG also holds main's streams per iteration, final tot_lkl
+and Viterbi IBD share to another tree's log of the same run (the parent's,
+in one call). --probes runs only the measurements and exits 4;
+--probe-build CSRC runs only probe_build on another tree's sources.
+
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launches summed over the paths and per path, its error against the
@@ -133,6 +147,14 @@ extern "C" int chain_probe(const float* q, float* out, int S, int N,
 # is left is expf/logf against torch.exp/torch.log).
 ATOL = 2e-5      # normalised products, ratios, posteriors
 LL_RTOL = 2e-6   # log-likelihoods
+# The transfer-and-tangent kernel's tangents against the product rule
+# carried in float64 (check_tangents_f64), measured as the ATOL gate
+# measures them, per site of the block: a float32 chain's distance from
+# float64 grows with its length. Set from the readings on the card
+# (PERF.md section 6): the separate-product float32 chain the kernel
+# replaced reads 2.2e-8 to 5.1e-8 a site (bs 33 to 1,471), the kernel
+# 1.8e-8 to 4.5e-8.
+TANGENT_F64_ATOL_SITE = 6e-8
 # est_maf kernels: the sum over individuals runs in another order than
 # torch.sum, so values agree to float32 rounding (relative to max(|x|, 1))
 # except at sites where that rounding flips the |prev - freq| > EPSILON
@@ -148,13 +170,19 @@ BF16_LL_RTOL = 5e-4
 
 # Float operations per (site, lane), counted from the CUDA sources
 # (emission prologue 25 on the gl slabs, none on the emission slabs;
-# transition 12; then the product / rescale step).
+# transition 12; then the product / rescale step). The transfer-and-tangent
+# step (csrc/block_transfer_grad.cu, GradLane) counts each fused
+# multiply-add as two operations, the way the 67 TFLOP/s peak does: the
+# per-lane emissions 14 (the prior coefficients are per (site, block)),
+# the decay 3, the transition matrix 8, the primal product, maximum and
+# rescale 20, the tangents 57 (M scaled by the lagging scale 4, the
+# factors 13, the 16 fused updates 32, their 8 products 8).
 FLOPS_CELL = {
-    "block_transfer_grad": 37 + 112,
+    "block_transfer_grad": 14 + 3 + 8 + 20 + 57,
     "block_transfer": 37 + 21,
     "bw_sites": 37 + 14,
     "fw_post": 37 + 18,
-    "block_transfer_grad_v1": 12 + 112,
+    "block_transfer_grad_v1": 3 + 8 + 20 + 57,
     "block_transfer_v1": 12 + 21,
     "bw_sites_v1": 12 + 14,
     "fw_post_v1": 12 + 18,
@@ -469,6 +497,7 @@ def probe_fmad(torch, prep, p_slab, timer, label):
     contraction moves the freq. A measurement only: nothing is gated and
     the package never loads this second library."""
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     flags = tuple("-fmad=true" if f == "-fmad=false" else f
@@ -477,6 +506,7 @@ def probe_fmad(torch, prep, p_slab, timer, label):
     g0, g2 = prep["g0"], prep["g2"]
     bs, nb, N = g0.shape
     K0, _ = tmaf.macro_schedule(N)
+    G, C = mk.state_grad_geometry(N)
     a = torch.empty((8, bs, nb), dtype=torch.float32, device=g0.device)
     b = torch.empty((4, bs, nb), dtype=torch.float32, device=g0.device)
     e = torch.empty((bs, nb), dtype=torch.float32, device=g0.device)
@@ -485,7 +515,7 @@ def probe_fmad(torch, prep, p_slab, timer, label):
     def calls(lib):
         return {
             "maf_state_grad": lambda: lib.ngsf_maf_state_grad(
-                *ptr, a.data_ptr(), bs * nb, N, K0, cuda_lib.stream()),
+                *ptr, a.data_ptr(), bs * nb, N, K0, G, C, cuda_lib.stream()),
             "maf_sums_grad": lambda: lib.ngsf_maf_sums_grad(
                 *ptr, a[0].data_ptr(), b.data_ptr(), bs * nb, N,
                 cuda_lib.stream()),
@@ -545,6 +575,500 @@ def probe_chain(torch, timer, S, N, compat):
     return ms
 
 
+# The transfer-and-tangent stream (csrc/block_transfer_grad.cu) split into
+# its two halves, in the kernel's lane layout (one thread per (block,
+# column) lane, CTAs of 128):
+#   compute_alone  the site step from registers: one chunk of sites loaded
+#                  once, then stepped bs times, each input laundered
+#                  through an empty asm so that nothing is hoisted:
+#                  ProductRuleLane (the step before the tangent rewrite:
+#                  site_load a lane, product-rule tangents, no FMA), and
+#                  (compute_alone_own) the kernel's own GradLane with the
+#                  prior coefficients computed once, as the kernel does
+#                  per (site, block);
+#   memory_alone   one pass over the two slabs and the compacts in the
+#                  lane-per-thread order of k_block_transfer, 4 sites of
+#                  loads a lane in flight (chunk_load), summed so that no
+#                  load is dropped; the kernel's own staging alone is its
+#                  MEM instantiation.
+# Built and timed by probe_transfer. Measurements only.
+TRANSFER_PROBE_CU = r"""
+#include "block_transfer_grad.cu"
+
+__device__ __forceinline__ void launder(float& v) { asm volatile("" : "+f"(v)); }
+
+struct ProductRuleLane {
+    float c00 = 1.f, c01 = 0.f, c10 = 0.f, c11 = 1.f;
+    float f00 = 0.f, f01 = 0.f, f10 = 0.f, f11 = 0.f;
+    float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+    int ex = 0;
+    __device__ __forceinline__ void site(const SiteK& k, float F) {
+        float m00, m01, m10, m11;
+        site_matrix(k, F, m00, m01, m10, m11);
+        const float dxp = k.x > 0.0f ? k.d * k.x : 0.0f;
+        const float oe0 = k.onem * k.e0;
+        const float oe1 = k.onem * k.e1;
+        const float fd = F * dxp;
+        const float gd = (1.0f - F) * dxp;
+        const float p00 = -fd * k.e0, p01 = fd * k.e1;
+        const float p10 = gd * k.e0, p11 = -gd * k.e1;
+        const float n00 = c00 * m00 + c01 * m10;
+        const float n01 = c00 * m01 + c01 * m11;
+        const float n10 = c10 * m00 + c11 * m10;
+        const float n11 = c10 * m01 + c11 * m11;
+        const float nf00 = (f00 * m00 + f01 * m10) + (c00 * -oe0 + c01 * -oe0);
+        const float nf01 = (f00 * m01 + f01 * m11) + (c00 * oe1 + c01 * oe1);
+        const float nf10 = (f10 * m00 + f11 * m10) + (c10 * -oe0 + c11 * -oe0);
+        const float nf11 = (f10 * m01 + f11 * m11) + (c10 * oe1 + c11 * oe1);
+        const float na00 = (a00 * m00 + a01 * m10) + (c00 * p00 + c01 * p10);
+        const float na01 = (a00 * m01 + a01 * m11) + (c00 * p01 + c01 * p11);
+        const float na10 = (a10 * m00 + a11 * m10) + (c10 * p00 + c11 * p10);
+        const float na11 = (a10 * m01 + a11 * m11) + (c10 * p01 + c11 * p11);
+        const float sc =
+            pow2_scale(fmaxf(max4(n00, n01, n10, n11), NGSF_TINY), ex);
+        c00 = n00 * sc; c01 = n01 * sc; c10 = n10 * sc; c11 = n11 * sc;
+        f00 = nf00 * sc; f01 = nf01 * sc; f10 = nf10 * sc; f11 = nf11 * sc;
+        a00 = na00 * sc; a01 = na01 * sc; a10 = na10 * sc; a11 = na11 * sc;
+    }
+    __device__ __forceinline__ float sum() const {
+        return c00 + c01 + c10 + c11 + f00 + f01 + f10 + f11 + a00 + a01 +
+               a10 + a11 + (float)ex;
+    }
+};
+
+template <class Src>
+__global__ void __launch_bounds__(128) compute_alone(
+        Src src, const float* Fp, const float* ap, float* out, int bs, int nb,
+        int N) {
+    const long long lanes = (long long)nb * N;
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= lanes) return;
+    const int j = (int)(lane / N);
+    const int n = (int)(lane - (long long)j * N);
+    const float F = Fp[n], a = ap[n];
+    float l0[NGSF_UNROLL], l2[NGSF_UNROLL], ff[NGSF_UNROLL], dd[NGSF_UNROLL];
+    chunk_load(src, 0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
+    ProductRuleLane L;
+    for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
+#pragma unroll
+        for (int u = 0; u < NGSF_UNROLL; ++u) {
+            launder(l0[u]); launder(l2[u]); launder(ff[u]); launder(dd[u]);
+            L.site(src.site(l0[u], l2[u], ff[u], dd[u], a), F);
+        }
+    }
+    out[lane] = L.sum();
+}
+
+template <class Src>
+__global__ void __launch_bounds__(128) memory_alone(
+        Src src, float* out, int bs, int nb, int N) {
+    const long long lanes = (long long)nb * N;
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= lanes) return;
+    const int j = (int)(lane / N);
+    float s = 0.0f;
+    for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
+        float l0[NGSF_UNROLL], l2[NGSF_UNROLL], ff[NGSF_UNROLL],
+            dd[NGSF_UNROLL];
+        chunk_load(src, r0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
+#pragma unroll
+        for (int u = 0; u < NGSF_UNROLL; ++u) s += l0[u] + l2[u] + ff[u] + dd[u];
+    }
+    out[lane] = s;
+}
+
+// The kernel's own step (GradLane) from registers; the prior coefficients,
+// which the kernel computes once per (site, block), are computed once here
+// and laundered at every site.
+template <class Src>
+__global__ void __launch_bounds__(128) compute_alone_own(
+        Src src, const float* Fp, const float* ap, float* out, int bs, int nb,
+        int N) {
+    const long long lanes = (long long)nb * N;
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= lanes) return;
+    const int j = (int)(lane / N);
+    const int n = (int)(lane - (long long)j * N);
+    const float F = Fp[n], a = ap[n];
+    float l0[NGSF_UNROLL], l2[NGSF_UNROLL], ff[NGSF_UNROLL], dd[NGSF_UNROLL];
+    chunk_load(src, 0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
+    Prior q[NGSF_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NGSF_UNROLL; ++u) q[u] = site_prior(ff[u]);
+    GradLane L;
+    for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
+#pragma unroll
+        for (int u = 0; u < NGSF_UNROLL; ++u) {
+            launder(l0[u]); launder(l2[u]); launder(dd[u]);
+            if (Src::kFreq) {
+                launder(q[u].i0); launder(q[u].pr0); launder(q[u].pq2);
+                launder(q[u].pr2); launder(q[u].s10); launder(q[u].het);
+                launder(q[u].s12);
+                L.site(site_emit(l0[u], l2[u], q[u], dd[u], a), F);
+            } else {
+                L.site(site_em(l0[u], l2[u], dd[u], a), F);
+            }
+        }
+    }
+    out[lane] = L.c00 + L.c01 + L.c10 + L.c11 + L.f00 + L.f01 + L.f10 +
+                L.f11 + L.a00 + L.a01 + L.a10 + L.a11 + (float)L.ex;
+}
+
+template <class Src>
+static int run_probe(int kind, Src src, const float* F, const float* al,
+                     float* out, int bs, int nb, int N, void* st) {
+    const long long lanes = (long long)nb * N;
+    const unsigned grid = (unsigned)((lanes + 127) / 128);
+    cudaStream_t s = (cudaStream_t)st;
+    switch (kind) {
+    case 0: compute_alone<<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
+    case 4: memory_alone<<<grid, 128, 0, s>>>(src, out, bs, nb, N); break;
+    // the kernel's own step, and its staged loads alone
+    case 1: compute_alone_own<<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
+    case 2: return launch<Src, true>(src, F, al, out, bs, nb, N, st);
+    default: return -1;
+    }
+    return (int)cudaGetLastError();
+}
+
+// source: 0 float32 gl, 1 bfloat16 gl, 2 emission slabs (v1)
+extern "C" int transfer_probe(int kind, int source, const void* a,
+                              const void* b, const float* fc, const float* dc,
+                              const float* F, const float* al, float* out,
+                              int bs, int nb, int N, void* st) {
+    if (source == 0)
+        return run_probe(kind, GlSource<float>{(const float*)a, (const float*)b, fc, dc},
+                         F, al, out, bs, nb, N, st);
+    if (source == 1)
+        return run_probe(kind, GlSource<__nv_bfloat16>{(const __nv_bfloat16*)a,
+                                                        (const __nv_bfloat16*)b, fc, dc},
+                         F, al, out, bs, nb, N, st);
+    return run_probe(kind, EmSource{(const float*)a, (const float*)b, nullptr, dc},
+                     F, al, out, bs, nb, N, st);
+}
+"""
+
+# H100 SM resources for the residency arithmetic of probe_build (CUDA
+# occupancy rules for compute capability 9.0).
+SM_COUNT = 132
+SM_REGS_PER_PARTITION = 16384  # 4 partitions of the 65,536 registers
+SM_MAX_WARPS, SM_MAX_CTAS = 64, 32
+SM_SMEM = 233472  # bytes of shared memory an SM gives its CTAs
+CTA_SMEM_RESERVED = 1024
+
+
+def resident_ctas(regs, threads, smem=0):
+    """CTAs of `threads` threads an SM holds at `regs` registers a thread
+    and `smem` bytes of shared memory a CTA: the least of the register,
+    warp, CTA and shared-memory limits."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(regs, 1) * 32 // 256) * 256
+    by_regs = 4 * (SM_REGS_PER_PARTITION // per_warp) // warps
+    by_smem = SM_SMEM // (smem + CTA_SMEM_RESERVED)
+    return min(by_regs, SM_MAX_WARPS // warps, SM_MAX_CTAS, by_smem)
+
+
+def _sass_loops(sass):
+    """Per function of a cuobjdump -sass listing: its instruction count and
+    its loops (a backward branch and its target), each as (instructions,
+    opcode counts)."""
+    import re
+
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {"ins": [], "labels": {}})
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            cur["labels"][m.group(1)] = len(cur["ins"])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            cur["ins"].append((int(m.group(1), 16), text))
+    out = {}
+    for name, f in funcs.items():
+        ins = f["ins"]
+        addr = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (a, text) in enumerate(ins):
+            if not text.startswith("BRA"):
+                continue
+            m = re.search(r"`?\(?(\.L_x_\d+)\)?`?", text)
+            if m and m.group(1) in f["labels"]:
+                t = f["labels"][m.group(1)]
+            else:
+                m = re.search(r"(0x[0-9a-f]+)", text)
+                t = addr.get(int(m.group(1), 16)) if m else None
+            if t is None or t >= i:
+                continue
+            body = [x.split()[0] for _, x in ins[t:i + 1]]
+            ops = {}
+            for op in body:
+                key = op.split(".")[0]
+                ops[key] = ops.get(key, 0) + 1
+            loops.append((len(body), ops, t, i))
+        loops.sort(key=lambda x: -x[0])
+        # the largest loop's instructions outside the loops nested in it
+        flat = 0
+        if loops:
+            _, _, t0, i0 = loops[0]
+            inner = [(t, i) for _, _, t, i in loops[1:] if t0 <= t and i <= i0]
+            flat = sum(1 for q in range(t0, i0 + 1)
+                       if not any(t <= q <= i for t, i in inner))
+        out[name] = (len(ins), [lp[:2] for lp in loops], flat)
+    return out
+
+
+PROBE_SOURCES = ("block_transfer_grad.cu", "block_transfer.cu",
+                 "maf_state_grad.cu")
+
+
+def probe_build(lanes_by_source, csrc=None):
+    """For each source of PROBE_SOURCES: nvcc -Xptxas -v (registers,
+    spills, shared memory of each instantiation) and cuobjdump -sass of
+    the same cubin (instructions of each loop, largest first, with the
+    commonest opcodes). Prints the resident CTAs an SM and the waves over
+    132 SMs at the lane (thread) counts given per source. A measurement
+    only: nothing is gated. csrc: another tree's csrc directory (the
+    parent's, to compare) in place of the package's."""
+    import pathlib
+    import re
+    import shutil
+
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    csrc = pathlib.Path(csrc or cuda_lib.CSRC)
+    d = cuda_lib.build_dir() / "probe_build"
+    d.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_lib._nvcc()
+    dump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc), "cuobjdump")
+    filt = shutil.which("cu++filt") or os.path.join(
+        os.path.dirname(nvcc), "cu++filt")
+    procs = []
+    for src in PROBE_SOURCES:
+        cubin = d / (src + ".cubin")
+        procs.append((src, cubin, subprocess.Popen(
+            [nvcc, *cuda_lib.NVCC_FLAGS, "-cubin", "-Xptxas", "-v", "-I",
+             str(csrc), str(csrc / src), "-o", str(cubin)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for src, cubin, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            log(f"[probe build] {src}: nvcc failed:\n{err}")
+            continue
+        props, cur = {}, None
+        for line in err.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = props.setdefault(m.group(1), {})
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = props.setdefault(m.group(1), {})
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill"] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["regs"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(m.group(1)) if m else 0
+        sass = subprocess.run([dump, "-sass", str(cubin)], capture_output=True,
+                              text=True).stdout
+        (d / (src + ".sass")).write_text(sass)
+        loops = _sass_loops(sass)
+        names = list(props)
+        try:
+            pretty = subprocess.run([filt], input="\n".join(names),
+                                    capture_output=True, text=True,
+                                    check=True).stdout.splitlines()
+        except (OSError, subprocess.CalledProcessError):
+            pretty = names
+        for name, nice in zip(names, pretty):
+            p = props[name]
+            if "regs" not in p:
+                continue
+            n_ins, lp, flat = loops.get(name, (0, [], 0))
+            threads = 256 if "maf" in src else 128
+            # the staged transfer kernel's dynamic shared memory: three
+            # tiles of 8 sites x 128 lanes of both slabs, 3 blocks' compacts
+            smem = p["smem"]
+            staged = "k_block_transfer_grad" in nice and "(bool)" in nice
+            if staged:
+                esz = 2 if "bfloat16" in nice else 4
+                smem += 3 * 2 * 8 * 128 * esz + 4 * 3 * 2 * 3 * 8 + (
+                    3 * 8 * 32 if "GlSource" in nice else 0)
+            ctas = resident_ctas(p["regs"], threads, smem)
+            shapes = lanes_by_source.get(src, {})
+            waves = ", ".join(
+                f"{k} {v[0] / (SM_COUNT * ctas * threads):.2f} waves"
+                for k, v in shapes.items()) if ctas else "not resident"
+            top = "; ".join(
+                f"{n} ins [" + ", ".join(
+                    f"{o} {c}" for o, c in sorted(ops.items(),
+                                                   key=lambda x: -x[1])[:8])
+                + "]" for n, ops in lp[:3] if n >= 8)
+            floor = ""
+            if "k_block_transfer" in nice and flat:
+                # the loop body holds NGSF_TG_D = 8 sites (the staged
+                # kernel) or NGSF_UNROLL = 4 (a lane-per-thread kernel)
+                per = flat / (8 if staged else 4)
+                floor = f"; {per:.1f} SASS instructions a site (the loop " \
+                    f"body outside its nested loops), issue floor " + ", ".join(
+                        f"{k} {per * v[1] / 32 / (4 * SM_COUNT * SM_CLOCK_MHZ * 1e3):.3f} ms"
+                        for k, v in shapes.items())
+            log(f"[probe build] {nice[:110]}: {p['regs']} registers, spills "
+                f"{p.get('spill', (0, 0))}, smem {smem} B; "
+                f"{ctas} CTAs of {threads} an SM ({waves}); {n_ins} SASS "
+                f"instructions, loops: {top or 'none'}{floor}")
+
+
+_transfer_lib = []
+
+
+def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
+    """The transfer-and-tangent kernel beside its two halves
+    (TRANSFER_PROBE_CU) on the same slabs, in turns: the kernel, the step
+    from registers (the product-rule step and the kernel's own), the
+    loads alone (in the lane order, and the kernel's own staging);
+    Prints each time and the loads' rate. A measurement only: nothing is
+    gated."""
+    import ctypes
+
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    if not _transfer_lib:
+        d = cuda_lib.build_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        src, so = d / "transfer_probe.cu", d / "transfer_probe.so"
+        src.write_text(TRANSFER_PROBE_CU)
+        subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I", str(cuda_lib.CSRC), str(src), "-o",
+                        str(so)], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        lib.transfer_probe.argtypes = [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        _transfer_lib.append(lib)
+    lib = _transfer_lib[0]
+    a, b = sl[0], sl[1]
+    fc = None if v1 else sl[2]
+    dc = sl[-1]
+    bs, nb, N = a.shape
+    source = 2 if v1 else (1 if a.dtype == torch.bfloat16 else 0)
+    out = torch.empty(13 * nb * N, device=a.device)  # a kernel's output
+    nbytes = 2 * a.numel() * a.element_size() + dc.numel() * 4 * (
+        1 if v1 else 2)
+
+    def probe(kind):
+        return lambda: cuda_lib.check(lib.transfer_probe(
+            kind, source, a.data_ptr(), b.data_ptr(),
+            0 if fc is None else fc.data_ptr(), dc.data_ptr(),
+            F_t.data_ptr(), a_t.data_ptr(), out.data_ptr(), bs, nb, N,
+            cuda_lib.stream()), f"transfer_probe {kind}")
+
+    kern = (lambda: h1._k_block_transfer_grad_v1(*sl, F_t, a_t)) if v1 else (
+        lambda: hk._k_block_transfer_grad(*sl, F_t, a_t))
+    runs = {"kernel": kern, "step from registers (product rule)": probe(0),
+            "loads alone, lane order, 4 sites in flight": probe(4),
+            "step from registers (the kernel's own)": probe(1),
+            "loads alone, the kernel's staging": probe(2)}
+    ms = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            ms[k].append(timer(runs[k])[1])
+    parts = []
+    for k, ts in ms.items():
+        t = min(ts)
+        rate = (f", {nbytes / t / 1e9:.3f} TB/s" if "loads" in k else "")
+        parts.append(f"{k} {t:.3f} ms{rate}")
+    log(f"[{label}] transfer-and-tangent split (lanes {nb * N}, bs {bs}): "
+        + "; ".join(parts))
+
+
+def probe_lanes(S, N, S_c, R=20):
+    """(threads, cells) of a launch of each PROBE_SOURCES kernel: a lane
+    per (block, column) for the stream kernels at the main path's shape
+    and at the restart path's (R replicates of the check shape), G lanes
+    a site for kernel A at the main path's shape."""
+    from ngsf_hmm_tpu_torch.models.hmm_kernels import pick_geom2
+    from ngsf_hmm_tpu_torch.ops.maf_kernels import state_grad_geometry
+
+    bs, nb = pick_geom2(S, N)
+    bs_r, nb_r = pick_geom2(S_c, R * N)
+    stream = {"main": (nb * N, bs * nb * N),
+              "restart": (nb_r * R * N, bs_r * nb_r * R * N)}
+    return {"block_transfer_grad.cu": stream, "block_transfer.cu": stream,
+            "maf_state_grad.cu": {
+                "main": (bs * nb * state_grad_geometry(N)[0], bs * nb * N)}}
+
+
+def run_probes(torch, dev, args, R=20):
+    """--probes: check_streams and probe_transfer at the main path's shape
+    (float32 and bfloat16 gl slabs) and at the restart path's (R
+    replicates of the check shape's emissions, the _v1 export), and
+    probe_fmad at the main path's shape; prints no result and returns
+    4."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+
+    f32 = torch.float32
+    timer = Timer(torch, dev)
+    gl, dist, freq, F0, a0 = simulate(args.sites, args.ind, args.seed)
+    gl_t = torch.exp(torch.as_tensor(gl).to(dev, f32))
+    del gl
+    dist_t = torch.as_tensor(dist).to(dev, f32)
+    F_t = torch.as_tensor(F0).to(dev, f32)
+    a_t = torch.as_tensor(a0).to(dev, f32)
+    prep = hk.prepare_gl_inputs(gl_t, dist_t)
+    fc = hk.freq_compact(torch.as_tensor(freq).to(dev, f32), prep)
+    sl = (prep["g0"], prep["g2"], fc, prep["dc"])
+    rec = Recorder(torch, "main shape", {})
+    p_slab = check_streams(torch, dev, rec, timer, "main shape", sl, F_t,
+                           a_t, False)
+    check_maf_kernels(torch, dev, prep, p_slab, rec, timer)
+    probe_transfer(torch, timer, "main shape", sl, F_t, a_t, False)
+    probe_fmad(torch, prep, p_slab, timer, "main shape")
+    del prep, p_slab
+    prep = hk.prepare_gl_inputs(gl_t, dist_t, gl_dtype=torch.bfloat16)
+    sl = (prep["g0"], prep["g2"], fc, prep["dc"])
+    rec = Recorder(torch, "main shape bf16", {})
+    check_maf_kernels(torch, dev, prep, check_streams(
+        torch, dev, rec, timer, rec.label, sl, F_t, a_t, False), rec, timer)
+    probe_transfer(torch, timer, "main shape bf16", sl, F_t, a_t, False)
+    del prep, gl_t
+    # the restart shape as main() checks it: R random replicate inits of
+    # the check shape's data, flattened into R * N columns
+    from ngsf_hmm_tpu_torch.models.restart import (flatten_states,
+                                                   stack_restart_states)
+    gl, dist, _, _, _ = simulate(args.check_sites, args.ind, args.seed + 7,
+                                 n_chrom=1)
+    step = max(2, min(100_000, args.check_sites // 2))
+    dist[step::step] = np.inf
+    flat = flatten_states(stack_restart_states(gl, R, args.seed + 5,
+                                               device=dev))
+    prep = h1.prepare_inputs(flat.e_prob, torch.as_tensor(dist).to(dev, f32))
+    sl = (prep["e0"], prep["e1"], prep["dc"])
+    F_t, a_t = flat.indF.contiguous(), flat.alpha.contiguous()
+    del flat
+    label = f"restart shape R={R}"
+    check_streams(torch, dev, Recorder(torch, label, {}), timer, label, sl,
+                  F_t, a_t, True)
+    probe_transfer(torch, timer, label, sl, F_t, a_t, True)
+    del prep, sl
+    check_maf_shapes(torch, dev, {}, args.seed, 20_011)
+    log("probes done; no result is printed for them")
+    return 4
+
+
 def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
     """What the LD path's freq M-step reads at this shape: the linear gl
     planes (maf_kernels.gl_rows) and the snapped posterior [S, N] that the
@@ -564,6 +1088,31 @@ def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
         return_slab=True)
     return (mk.gl_rows(gl_t), check_interv(p_sites).contiguous(), prep,
             check_interv(p_slab))
+
+
+def check_maf_shapes(torch, dev, results, seed, S_m, Ns=(40, 32, 130, 300)):
+    """The row est_maf kernel (maf_macro) and the slab est_maf kernels
+    against their plain versions at S_m sites: a ragged site count at 40
+    individuals, the schedule's edge (32), 130 and 300 (kernel A's G = 8,
+    16 and 32 lanes a site; above 128 maf_macro recomputes its planes
+    from cache, above 256 kernel A does); est_maf_slab's pieces and the
+    one-launch slab kernel on float32 and bfloat16 slabs of the same gl.
+    The LD path's shape is checked in main."""
+    for N_m in Ns:
+        gl_m, dist_m, freq_m, F0_m, a0_m = simulate(S_m, N_m, seed + N_m)
+        rows, p_m, prep_m, slab_m = maf_rows_inputs(
+            torch, dev, gl_m, dist_m, freq_m, F0_m, a0_m)
+        rec_m = Recorder(torch, f"macro shape N={N_m}", results)
+        check_maf_macro(torch, rows, p_m, rec_m, Timer(torch, dev))
+        # the slab kernels on the same snapped posterior, float32 and
+        # bfloat16 slabs of the same gl
+        for dt in (torch.float32, torch.bfloat16):
+            prep = dict(prep_m, g0=prep_m["g0"].to(dt),
+                        g2=prep_m["g2"].to(dt))
+            check_maf_kernels(torch, dev, prep, slab_m, rec_m,
+                              Timer(torch, dev))
+            check_macro_slab(torch, prep, slab_m, rec_m, Timer(torch, dev))
+        del gl_m, rows, p_m, prep_m, slab_m
 
 
 def check_maf_macro(torch, rows, p, rec, timer, slab=None):
@@ -647,6 +1196,93 @@ def check_macro_slab(torch, prep, p_slab, rec, timer):
         fail(f"[{rec.label}] macro_slab off est_maf_slab by {d}")
 
 
+def product_rule_chain(torch, site, dc, shape, F, alpha, dt):
+    """The transfer-and-tangent chain with the product rule written out,
+    d(C M) = dC M + C dM, dM/dF and dM/dalpha as full 2x2 matrices (the
+    plain version's form before the factored tangents), carried in `dt`
+    from the float32 emissions and decay of the package's site function:
+    float64 gives the reference the kernel's tangents are held to, float32
+    the separate-product plain version the kernel replaced (its bits).
+    Each site rescales by a power of two, as the kernel does (a float64
+    chain would underflow over a block too). -> ([12, nb, N] in dt, the
+    exponent sum [nb, N] int64)."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+
+    bs, nb, N = shape
+    Fb, ab = F[None, :].to(dt), alpha[None, :]
+    one = torch.ones((nb, N), dtype=dt, device=F.device)
+    zero = torch.zeros_like(one)
+    c, cF, ca = (one, zero, zero, one.clone()), (zero,) * 4, (zero,) * 4
+    ex = torch.zeros((nb, N), dtype=torch.int64, device=F.device)
+    for r in range(bs):
+        e0, e1, x, onem = (v.to(dt) for v in site(r, ab))
+        m = hk._site_matrix_plain(e0, e1, x, onem, Fb)
+        dxp = torch.where(x > 0.0, dc[r][:, None].to(dt) * x,
+                          torch.zeros_like(x))
+        oe0, oe1 = onem * e0, onem * e1
+        fd, gd = Fb * dxp, (1.0 - Fb) * dxp
+        mF = (-oe0, oe1, -oe0, oe1)
+        ma = (-fd * e0, fd * e1, gd * e0, -gd * e1)
+        n = hk._mm4(c, m)
+        nF = tuple(p + q for p, q in zip(hk._mm4(cF, m), hk._mm4(c, mF)))
+        na = tuple(p + q for p, q in zip(hk._mm4(ca, m), hk._mm4(c, ma)))
+        mx = hk._tiny(hk._max4(*n))
+        if dt == torch.float32:
+            sc, e = hk._pow2_rescale(mx)
+        else:  # the same from the float64 exponent field
+            e = (mx.view(torch.int64) >> 52) - 1023
+            sc = ((1023 - e) << 52).view(torch.float64)
+        c = tuple(v * sc for v in n)
+        cF = tuple(v * sc for v in nF)
+        ca = tuple(v * sc for v in na)
+        ex = ex + e
+    return torch.stack(c + cF + ca), ex
+
+
+def chain_errors(torch, got, ex_got, want, ex_want):
+    """(primal, tangent) distance of a chain's 12 rows from the float64
+    reference's, both at the reference's exponent: the primal's largest
+    absolute difference (its rows are normalised), the tangents' relative
+    to each lane's largest entry (at least 1), as the ATOL gate measures
+    them."""
+    g = got.double() * torch.exp2((ex_got - ex_want).double())
+    prim = float((g[:4] - want[:4]).abs().max())
+    tang = 0.0
+    for lo in (4, 8):
+        scale = want[lo:lo + 4].abs().amax(0).clamp_min(1.0)
+        tang = max(tang, float(((g[lo:lo + 4] - want[lo:lo + 4]).abs()
+                                / scale).max()))
+    return prim, tang
+
+
+def check_tangents_f64(torch, label, name, site, sl, k1, F_t, a_t):
+    """The transfer-and-tangent kernel's output k1 against the product
+    rule carried in float64 (product_rule_chain), beside the
+    separate-product float32 chain's distance from the same reference.
+    Fails the run if the kernel's tangents are further than
+    TANGENT_F64_ATOL_SITE x bs from it (its primal rows are held to the
+    plain version's bits; their distance is printed)."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+
+    dc, shape = sl[-1], sl[0].shape
+    want, ex_w = product_rule_chain(torch, site, dc, shape, F_t, a_t,
+                                    torch.float64)
+    ex_k = torch.round(k1[12].double() / hk._LN2).long()
+    kp, kt = chain_errors(torch, k1[:12], ex_k, want, ex_w)
+    old, ex_o = product_rule_chain(torch, site, dc, shape, F_t, a_t,
+                                   torch.float32)
+    op, ot = chain_errors(torch, old, ex_o, want, ex_w)
+    del want, old
+    limit = TANGENT_F64_ATOL_SITE * shape[0]
+    log(f"[{label}] {name} against the product rule in float64 (bs "
+        f"{shape[0]}): kernel primal {kp:.3g}, tangents {kt:.3g}; the "
+        f"separate-product float32 chain primal {op:.3g}, tangents {ot:.3g} "
+        f"(limit {limit:.3g})")
+    if kt > limit:
+        fail(f"{name} [{label}]: tangents {kt} from the float64 product "
+             f"rule > {limit}")
+
+
 def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     """The four stream kernels of one emission source (v1=False: the gl
     slabs of models/hmm_kernels.py, sl = (g0, g2, fc, dc), float32 or
@@ -693,6 +1329,9 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     record("block_transfer_grad" + sfx, err, ms, pms,
            src + 13 * nb * N * 4, flops("block_transfer_grad"))
     del p1
+    check_tangents_f64(torch, label, "block_transfer_grad" + sfx,
+                       h1._em_site(*sl) if v1 else hk._gl_site(*sl), sl, k1,
+                       F_t, a_t)
 
     # ---- transfer, B = 1 (bit identity with the grad kernel) and B = 2
     F1, a1 = F_t[None].contiguous(), a_t[None].contiguous()
@@ -796,11 +1435,78 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     return po_k
 
 
-def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results):
+def offset_view(torch, t, k=1):
+    """A copy of t in a contiguous view that starts k elements into its
+    storage (a slab cut from a larger buffer)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    v = buf[k:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def check_offset_slabs(torch, label, kern, sl, F_t, a_t):
+    """The transfer-and-tangent kernel on slabs that start one element
+    into their storage (4-byte aligned float32, 2-byte aligned bfloat16
+    base addresses: the copy width must follow them, not the row length
+    alone) equals its output on the aligned slabs bit for bit."""
+    want = kern(*sl, F_t, a_t)
+    got = kern(offset_view(torch, sl[0]), offset_view(torch, sl[1]),
+               *sl[2:], F_t, a_t)
+    if not torch.equal(got, want):
+        fail(f"[{label}] the transfer-and-tangent kernel on offset slabs "
+             "differs from its output on aligned ones")
+    log(f"[{label}] transfer-and-tangent kernel on slabs one element into "
+        "their storage torch.equal the aligned ones: True")
+
+
+def check_copy_widths(torch, dev, seed, S=3001):
+    """The stream kernels of all three sources at S sites x 33 and 34
+    columns: lanes odd and lanes = 2 mod 4, so the transfer-and-tangent
+    kernel stages its rows with every copy width (16 and 8 bytes at the
+    main and restart shapes; 8 and 4 bytes here for float32 rows, 4 and 2
+    for bfloat16 ones), with a partial last tile. Each kernel against its
+    plain version (check_streams, the primal rows' bit identity included);
+    then the transfer-and-tangent kernel on slabs whose base addresses are
+    not aligned to the row's width (check_offset_slabs). Nothing is
+    recorded."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+
+    f32 = torch.float32
+    timer = Timer(torch, dev)
+    for N in (33, 34):
+        gl, dist, freq, F, alpha = simulate(S, N, seed + N, n_chrom=2)
+        gl_t = torch.as_tensor(gl).to(dev, f32)
+        dist_t = torch.as_tensor(dist).to(dev, f32)
+        freq_t = torch.as_tensor(freq).to(dev, f32)
+        F_t = torch.as_tensor(F).to(dev, f32)
+        a_t = torch.as_tensor(alpha).to(dev, f32)
+        for dt in (f32, torch.bfloat16):
+            prep = hk.prepare_gl_inputs(torch.exp(gl_t), dist_t, gl_dtype=dt)
+            label = f"copy widths N={N} lanes={prep['nb'] * N} {dt}"
+            sl = (prep["g0"], prep["g2"], hk.freq_compact(freq_t, prep),
+                  prep["dc"])
+            check_streams(torch, dev, Recorder(torch, label, {}), timer,
+                          label, sl, F_t, a_t, False)
+            check_offset_slabs(torch, label, hk._k_block_transfer_grad, sl,
+                               F_t, a_t)
+        prep = h1.prepare_inputs(calc_emission(gl_t, freq_t[:, None]), dist_t)
+        label = f"copy widths N={N} v1"
+        sl = (prep["e0"], prep["e1"], prep["dc"])
+        check_streams(torch, dev, Recorder(torch, label, {}), timer, label,
+                      sl, F_t, a_t, True)
+        check_offset_slabs(torch, label, h1._k_block_transfer_grad_v1, sl,
+                           F_t, a_t)
+
+
+def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results,
+                     probe=False):
     """The emission-slab kernels (models/hmm_kernels_v1.py) against their
     plain versions on `dev`: e_prob [S, L, 2] log emissions, F / alpha [L]
     (L columns: individuals, or replicate x individual). Also holds the
-    public posteriors_v1 / loglik_value_and_grad_v1 to the pieces."""
+    public posteriors_v1 / loglik_value_and_grad_v1 to the pieces.
+    probe: also probe_transfer on these slabs."""
     from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
 
     f32 = torch.float32
@@ -812,9 +1518,11 @@ def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results):
     log(f"[{label}] S={S} columns={L} bs={bs} nb={nb} lanes={nb * L} "
         f"pad sites={nb * bs - S} breaks={int(np.isinf(dist).sum())}")
     rec = Recorder(torch, label, results)
-    po_k = check_streams(torch, dev, rec, Timer(torch, dev), label,
-                         (prep["e0"], prep["e1"], prep["dc"]), F_t, a_t,
-                         v1=True)
+    sl = (prep["e0"], prep["e1"], prep["dc"])
+    po_k = check_streams(torch, dev, rec, Timer(torch, dev), label, sl, F_t,
+                         a_t, v1=True)
+    if probe and dev.type == "cuda":
+        probe_transfer(torch, Timer(torch, dev), label, sl, F_t, a_t, True)
     p, _, _, slab = h1.posteriors_v1(F_t, a_t, prep, return_slab=True)
     if not torch.equal(slab, po_k):
         fail(f"[{label}] posteriors_v1 differs from its kernels")
@@ -829,13 +1537,15 @@ def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results):
 
 
 def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
-                  reference=False, fmad_probe=False, bf16=False):
+                  reference=False, probes=False, bf16=False):
     """Every kernel's wrapper against its plain version on `dev` at this
     shape; fills results[name] with the error and times. Fails the run on
     any disagreement. reference=True also holds the est_maf functions
     against ops/maf.est_maf on the unpacked [S, N] arrays. bf16=True also
     holds the one-launch slab est_maf on these slabs, then the bfloat16
-    exports of the gl kernels on bfloat16 slabs of the same gl."""
+    exports of the gl kernels on bfloat16 slabs of the same gl. probes
+    (on the card): also probe_transfer on both slab types and
+    probe_fmad."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -859,22 +1569,27 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
 
     po_k = check_streams(torch, dev, rec, timer, label, sl, F_t, a_t,
                          v1=False)
+    if probes and dev.type == "cuda":
+        probe_transfer(torch, timer, label, sl, F_t, a_t, False)
     p_sites = hk._unpack_sites2(po_k, prep)
     del sl
 
     # ---- the est_maf kernels, on the slabs and the posterior from above
     ref = dict(p_sites=p_sites, gl_lin=torch.exp(gl_t)) if reference else {}
     check_maf_kernels(torch, dev, prep, po_k, rec, timer, **ref)
-    if fmad_probe and dev.type == "cuda":
+    if probes and dev.type == "cuda":
         probe_fmad(torch, prep, po_k, timer, label)
     if bf16:
         check_macro_slab(torch, prep, po_k, rec, timer)
         prep_b = hk.prepare_gl_inputs(torch.exp(gl_t), dist_t,
                                       gl_dtype=torch.bfloat16)
         rec_b = Recorder(torch, f"{label} bf16", results)
-        po_b = check_streams(torch, dev, rec_b, timer, rec_b.label,
-                             (prep_b["g0"], prep_b["g2"], fc, prep_b["dc"]),
+        sl_b = (prep_b["g0"], prep_b["g2"], fc, prep_b["dc"])
+        po_b = check_streams(torch, dev, rec_b, timer, rec_b.label, sl_b,
                              F_t, a_t, v1=False)
+        if probes and dev.type == "cuda":
+            probe_transfer(torch, timer, rec_b.label, sl_b, F_t, a_t, False)
+        del sl_b
         log(f"[{rec_b.label}] posterior slab against the float32 slabs' "
             f"one: max diff {float((po_b - po_k).abs().max()):.3g} (the gl "
             "quantisation; information)")
@@ -1244,12 +1959,48 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     log(f"[{label}] mean indF {indF.mean():.4f}, mean alpha "
         f"{alpha.mean():.4f}, Viterbi IBD share {res.path.mean():.4f}, mean "
         f"p_ibd {p_ibd.mean():.4f}")
+    SUMMARY[label] = dict(streams=[int(n) for n in probes],
+                          tot_lkl=float(iters[-1][1]),
+                          ibd=f"{res.path.mean():.4f}")
     if dev.type == "cuda":
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
             f"run_em {peak:.2f} GiB")
     log(f"[{label}] launches {counts}; output bytes {sizes}")
     return counts, finals
+
+
+# per path: L-BFGS streams per iteration, final tot_lkl, Viterbi IBD share
+SUMMARY = {}
+
+
+def against_parent(path, label="main"):
+    """Holds this run's `label` path to another tree's chip_smoke.py log at
+    `path` (the same data from the same seed): the same transfer+tangent
+    streams per iteration, the final tot_lkl within 1e-6 relative, the
+    same Viterbi IBD share to four digits."""
+    import re
+
+    streams, tot, ibd = [], None, None
+    for line in open(path):
+        m = re.match(rf"\[{label}\] iteration \d+: .*tot_lkl (\S+), "
+                     r"transfer\+tangent streams (\d+)", line)
+        if m:
+            tot, streams = float(m.group(1)), streams + [int(m.group(2))]
+        m = re.match(rf"\[{label}\] mean indF .*Viterbi IBD share (\S+),",
+                     line)
+        if m:
+            ibd = m.group(1)
+    mine = SUMMARY[label]
+    if tot is None or ibd is None:
+        fail(f"[{label}] no iteration or IBD line in {path}")
+    rel = abs(mine["tot_lkl"] - tot) / abs(tot)
+    log(f"[{label}] against {path}: streams per iteration {mine['streams']} "
+        f"(there {streams}), final tot_lkl {mine['tot_lkl']:.3f} (there "
+        f"{tot:.3f}, relative difference {rel:.3g}), Viterbi IBD share "
+        f"{mine['ibd']} (there {ibd})")
+    if mine["streams"] != streams or rel > 1e-6 or mine["ibd"] != ibd:
+        fail(f"[{label}] differs from {path}")
 
 
 def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
@@ -1592,6 +2343,16 @@ def main():
                     help="print each kernel's registers and spills")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU, plain versions; exits 3")
+    ap.add_argument("--against", metavar="LOG",
+                    help="hold main's streams, final tot_lkl and Viterbi "
+                    "IBD share to another tree's chip_smoke.py log of the "
+                    "same data")
+    ap.add_argument("--probe-build", metavar="CSRC",
+                    help="only probe_build, on another tree's csrc "
+                    "directory; exits 4")
+    ap.add_argument("--probes", action="store_true",
+                    help="only the build, transfer and est_maf probes at "
+                    "the main and restart shapes; exits 4")
     args = ap.parse_args()
 
     import torch
@@ -1625,6 +2386,10 @@ def main():
             text=True, check=True).stdout.split()[0])
         log(f"[device] highest SM clock {SM_CLOCK_MHZ:.0f} MHz")
 
+        if args.probe_build:
+            probe_build(probe_lanes(args.sites, args.ind, args.check_sites),
+                        args.probe_build)
+            return 4
         # ---- phase 2: build
         t0 = time.perf_counter()
         if args.ptxas:
@@ -1636,6 +2401,11 @@ def main():
         cuda_lib.load()
         log(f"[build] {len(cuda_lib.SOURCES)} sources -> "
             f"{cuda_lib.build()} in {time.perf_counter() - t0:.1f} s (set-up)")
+        t0 = time.perf_counter()
+        probe_build(probe_lanes(args.sites, args.ind, args.check_sites))
+        log(f"[probe build] done in {time.perf_counter() - t0:.1f} s")
+        if args.probes:
+            return run_probes(torch, dev, args)
 
     # ---- phase 3: every kernel against its plain version
     results = {}
@@ -1655,6 +2425,8 @@ def main():
         (2_003, n) for n in (263, 521, 1_001, 2_011, 3_001))
     for i, (S_v, N_v) in enumerate(hooks):
         check_viterbi_hooks(torch, dev, S_v, N_v, args.seed + 13 + i)
+    check_copy_widths(torch, dev, args.seed + 17,
+                      S=301 if args.rehearse else 3001)
     log(f"[check] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1689,25 +2461,9 @@ def main():
     del gl_t, prep, p_sites, p_slab, g0_x, g2_x, p_x
     log(f"[exact shape] done in {time.perf_counter() - t0:.1f} s")
 
-    # ---- the row est_maf kernel (maf_macro) against its plain version:
-    # a ragged site count at 40 individuals, the schedule's edge (32),
-    # above 128 (planes recomputed from cache); the LD path's shape below
     t0 = time.perf_counter()
-    S_m = 333 if args.rehearse else 33_333
-    for N_m in (40, 32, 130):
-        gl_m, dist_m, freq_m, F0_m, a0_m = simulate(S_m, N_m,
-                                                    args.seed + N_m)
-        rows, p_m, prep_m, slab_m = maf_rows_inputs(
-            torch, dev, gl_m, dist_m, freq_m, F0_m, a0_m)
-        rec_m = Recorder(torch, f"macro shape N={N_m}", results)
-        check_maf_macro(torch, rows, p_m, rec_m, Timer(torch, dev))
-        # the slab kernel on the same snapped posterior, float32 and
-        # bfloat16 slabs of the same gl
-        for dt in (torch.float32, torch.bfloat16):
-            check_macro_slab(torch, dict(prep_m, g0=prep_m["g0"].to(dt),
-                                         g2=prep_m["g2"].to(dt)),
-                             slab_m, rec_m, Timer(torch, dev))
-        del gl_m, rows, p_m, prep_m, slab_m
+    check_maf_shapes(torch, dev, results, args.seed,
+                     333 if args.rehearse else 33_333)
     log(f"[macro shapes] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1715,7 +2471,7 @@ def main():
     log(f"[main] inputs simulated in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
-                  fmad_probe=True, bf16=True)
+                  probes=True, bf16=True)
     rows, p_m, prep, p_slab = maf_rows_inputs(torch, dev, gl, dist, freq,
                                               F0, a0)
     check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
@@ -1740,7 +2496,7 @@ def main():
                                                args.seed + 5, device=dev))
     check_v1_kernels(torch, dev, flat.e_prob, dist_c, flat.indF.cpu(),
                      flat.alpha.cpu(), f"restart shape R={R}",
-                     results)
+                     results, probe=True)
     del flat
     log(f"[v1] kernels checked in {time.perf_counter() - t0:.1f} s")
     # maf_exact runs on the exact path only: its line keeps the times at
@@ -1755,6 +2511,8 @@ def main():
     paths["main"], finals["main"] = run_path(
         torch, dev, "main", gl, dist, freq, F0, a0, 1,
         CHAIN_KERNELS + SLAB_KERNELS + ("maf_macro_slab",), writers=True)
+    if args.against:
+        against_parent(args.against)
     # the main path on bfloat16 gl slabs, held against main's final state
     paths["bf16"], _ = run_path(
         torch, dev, "bf16", gl, dist, freq, F0, a0, 1,

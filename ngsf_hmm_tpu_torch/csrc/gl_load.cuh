@@ -12,3 +12,10 @@ __device__ __forceinline__ float ld_gl(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld_gl(const __nv_bfloat16* p) {
     return __bfloat162float(__ldg(p));
 }
+
+// The same upcast for a value already read (from shared memory).
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+}

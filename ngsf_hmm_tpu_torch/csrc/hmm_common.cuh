@@ -42,23 +42,53 @@ struct SiteK {   // per (site, lane): emissions and the decay x = exp(-a d)
 // In-kernel emission prologue: e_k = sum_g gl_g P(g | f, F = k) with the
 // state-0 HWE and state-1 full-IBD priors; gl1 = 1 - gl0 - gl2. The
 // sentinel f > 1 marks a pad cell: every prior coefficient 0 and the
-// indicator 1, so e == 1 exactly whatever the gl bytes are.
-__device__ __forceinline__ SiteK site_load(float g0, float g2, float f,
-                                           float d, float a) {
+// indicator 1, so e == 1 exactly whatever the gl bytes are. The prior
+// coefficients depend on the site only (site_prior); a kernel may compute
+// them once per (site, block) and hand them to its lanes, which then get
+// the same bits as site_load.
+struct Prior {
+    float i0, pr0, pq2, pr2, s10, het, s12;
+};
+
+__device__ __forceinline__ Prior site_prior(float f) {
     const bool pad = f > 1.0f;
     const float one_m = 1.0f - f;
     const float pq = one_m * f;
-    const float i0 = pad ? 1.0f : 0.0f;
-    const float pr0 = pad ? 0.0f : one_m * one_m;
-    const float pq2 = pad ? 0.0f : 2.0f * pq;
-    const float pr2 = pad ? 0.0f : f * f;
-    const float s10 = pad ? 0.0f : (one_m * one_m + pq);
-    const float het = pad ? 0.0f : NGSF_HET_FLOOR;
-    const float s12 = pad ? 0.0f : (f * f + pq);
+    Prior q;
+    q.i0 = pad ? 1.0f : 0.0f;
+    q.pr0 = pad ? 0.0f : one_m * one_m;
+    q.pq2 = pad ? 0.0f : 2.0f * pq;
+    q.pr2 = pad ? 0.0f : f * f;
+    q.s10 = pad ? 0.0f : (one_m * one_m + pq);
+    q.het = pad ? 0.0f : NGSF_HET_FLOOR;
+    q.s12 = pad ? 0.0f : (f * f + pq);
+    return q;
+}
+
+__device__ __forceinline__ SiteK site_emit(float g0, float g2,
+                                           const Prior& q, float d,
+                                           float a) {
     const float g1 = 1.0f - g0 - g2;
     SiteK k;
-    k.e0 = i0 + g0 * pr0 + g1 * pq2 + g2 * pr2;
-    k.e1 = i0 + g0 * s10 + g1 * het + g2 * s12;
+    k.e0 = q.i0 + g0 * q.pr0 + g1 * q.pq2 + g2 * q.pr2;
+    k.e1 = q.i0 + g0 * q.s10 + g1 * q.het + g2 * q.s12;
+    k.x = expf(-a * d);
+    k.onem = 1.0f - k.x;
+    k.d = d;
+    return k;
+}
+
+__device__ __forceinline__ SiteK site_load(float g0, float g2, float f,
+                                           float d, float a) {
+    return site_emit(g0, g2, site_prior(f), d, a);
+}
+
+// Emission-slab site: precomputed linear emissions, the same decay.
+__device__ __forceinline__ SiteK site_em(float e0, float e1, float d,
+                                         float a) {
+    SiteK k;
+    k.e0 = e0;
+    k.e1 = e1;
     k.x = expf(-a * d);
     k.onem = 1.0f - k.x;
     k.d = d;
@@ -96,6 +126,7 @@ __device__ __forceinline__ float max4(float a, float b, float c, float d) {
 // slabs' storage type (float or __nv_bfloat16).
 template <class T>
 struct GlSource {
+    using Elem = T;
     const T* a;       // gl0 slab [bs, nb, N]
     const T* b;       // gl2 slab [bs, nb, N]
     const float* fc;  // freq compact [bs, nb], pad 2.0
@@ -110,6 +141,7 @@ struct GlSource {
 
 // v1 source: precomputed linear emissions; a pad cell holds e = 1.
 struct EmSource {
+    using Elem = float;
     const float* a;   // e0 slab [bs, nb, L]
     const float* b;   // e1 slab [bs, nb, L]
     const float* fc;  // unused
@@ -118,13 +150,7 @@ struct EmSource {
     static constexpr float kPad = 1.0f;
     __device__ __forceinline__ SiteK site(float e0, float e1, float,
                                           float d, float al) const {
-        SiteK k;
-        k.e0 = e0;
-        k.e1 = e1;
-        k.x = expf(-al * d);
-        k.onem = 1.0f - k.x;
-        k.d = d;
-        return k;
+        return site_em(e0, e1, d, al);
     }
 };
 

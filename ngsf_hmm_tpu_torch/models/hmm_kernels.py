@@ -278,6 +278,37 @@ def _k_block_transfer(g0, g2, fc, dc, F, alpha):
 # ---------------------------------------------------------------------------
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once, as the kernels' __fmaf_rn: the float32
+    product is exact in float64, so only the float64 sum's rounding comes
+    before the one to float32 (the two differ from a fused result only
+    where the float64 sum lands on a float32 tie, about one in 2^29)."""
+    return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def _tangent_step(c, cF, ca, m, e0, e1, onem, dxp, F):
+    """The (F, alpha) tangents of one site step, d(C M) = dC M + C dM, in
+    csrc/block_transfer_grad.cu's order (GradLane::site), each of its
+    fused multiply-adds as _fma: dM/dF has two equal rows, so row r of
+    C dM/dF is (-oe0 s_r, oe1 s_r) with s_r = c_r0 + c_r1; row r of
+    C dM/dalpha is (de0 w_r, -de1 w_r) with w_r = (1 - F) c_r1 - F c_r0."""
+    m00, m01, m10, m11 = m
+    oe0, oe1 = onem * e0, onem * e1
+    de0, de1 = dxp * e0, dxp * e1
+    s0, s1 = c[0] + c[1], c[2] + c[3]
+    w0 = _fma(1.0 - F, c[1], -(F * c[0]))
+    w1 = _fma(1.0 - F, c[3], -(F * c[2]))
+    nF = (_fma(cF[0], m00, _fma(cF[1], m10, -(oe0 * s0))),
+          _fma(cF[0], m01, _fma(cF[1], m11, oe1 * s0)),
+          _fma(cF[2], m00, _fma(cF[3], m10, -(oe0 * s1))),
+          _fma(cF[2], m01, _fma(cF[3], m11, oe1 * s1)))
+    na = (_fma(ca[0], m00, _fma(ca[1], m10, de0 * w0)),
+          _fma(ca[0], m01, _fma(ca[1], m11, -(de1 * w0))),
+          _fma(ca[2], m00, _fma(ca[3], m10, de0 * w1)),
+          _fma(ca[2], m01, _fma(ca[3], m11, -(de1 * w1))))
+    return nF, na
+
+
 def _transfer_grad_loop(site, dc, shape, F, alpha, device):
     """csrc/block_transfer_grad.cu's loop: F/alpha [N] -> [13, nb, N]. The
     primal rows go through the same functions as _transfer_loop, so they
@@ -295,13 +326,8 @@ def _transfer_grad_loop(site, dc, shape, F, alpha, device):
         m = _site_matrix_plain(e0, e1, x, onem, Fb)
         # d x forced to 0 at a chromosome break (d = inf, x = 0)
         dxp = torch.where(x > 0.0, dc[r][:, None] * x, torch.zeros_like(x))
-        oe0, oe1 = onem * e0, onem * e1
-        fd, gd = Fb * dxp, (1.0 - Fb) * dxp
-        mF = (-oe0, oe1, -oe0, oe1)
-        ma = (-fd * e0, fd * e1, gd * e0, -gd * e1)
         n = _mm4(c, m)
-        nF = tuple(p + q for p, q in zip(_mm4(cF, m), _mm4(c, mF)))
-        na = tuple(p + q for p, q in zip(_mm4(ca, m), _mm4(c, ma)))
+        nF, na = _tangent_step(c, cF, ca, m, e0, e1, onem, dxp, Fb)
         sc, e = _pow2_rescale(_tiny(_max4(*n)))
         c = tuple(v * sc for v in n)
         cF = tuple(v * sc for v in nF)
@@ -324,10 +350,14 @@ def _k_block_transfer_grad(g0, g2, fc, dc, F, alpha):
 
     Replaces the TPU kernel ngsf_hmm_tpu/models/hmm_pallas.py
     :_k2_block_transfer_grad. It runs in the E-step and on every L-BFGS
-    probe. By bytes its bound is the two gl slabs; with about 110 float
-    operations a cell and no FMA contraction (bit identity with
-    block_transfer) it is close to the float32 rate too. The 12 carries
-    and the exponent sum stay in registers."""
+    probe. Its bound is the two gl slabs' bytes; on the card it is bound
+    by instruction issue (PERF.md section 7). The kernel stages tiles of
+    8 sites x 128 lanes of both slabs in shared memory with cp.async,
+    three deep, computes the prior coefficients once per (site, block),
+    keeps the 12 carries and the exponent sum in registers and fuses the
+    factored tangent updates (_tangent_step); its primal step is
+    block_transfer's, unfused, so the primal rows equal that kernel's
+    output bit for bit."""
     if not g0.is_cuda:
         return _block_transfer_grad_plain(g0, g2, fc, dc, F, alpha)
     bs, nb, N, sfx = _check_stream_args("block_transfer_grad", g0, g2, fc,

@@ -152,8 +152,10 @@ def _k_block_transfer_grad_v1(e0, e1, dc, F, alpha):
     """Per-block transfer products with (F, alpha) tangents, [13, nb, L].
 
     Replaces the TPU kernel ngsf_hmm_tpu/models/hmm_pallas.py
-    :_k_block_transfer_grad. It runs on every L-BFGS probe. Bound by bytes
-    (the two emission slabs) and close to the float32 rate too."""
+    :_k_block_transfer_grad. It runs on every L-BFGS probe. Its bound is
+    the two emission slabs' bytes; the kernel is the staged template of
+    block_transfer_grad (csrc/block_transfer_grad.cu) on the emission
+    slabs."""
     if not e0.is_cuda:
         return _block_transfer_grad_v1_plain(e0, e1, dc, F, alpha)
     bs, nb, L = _check_v1_args("block_transfer_grad_v1", e0, e1, dc, F,

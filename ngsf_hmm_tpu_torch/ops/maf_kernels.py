@@ -4,7 +4,8 @@ Inside the EM loop the gl slabs (g0, g2; g1 = 1 - g0 - g2) are resident
 run constants and the posterior comes out of the fw_post kernel in the
 same [bs, nb, N] layout, so the damped fixed point (ops/maf.py) runs
 directly on those. Five CUDA kernels (``csrc/maf_*.cu``), one warp per
-site (one thread per site for the window):
+site (G lanes a site for maf_state_grad, state_grad_geometry; one thread
+per site for the window):
 
   maf_state_grad  K0 real damped passes, then (cn, cd, dcn, dcd)
   maf_sums_grad   (cn, cd, dcn, dcd) at a given freq
@@ -32,7 +33,8 @@ plain PyTorch version beside it only for CPU tensors. The plain versions
 are a Python loop over passes of vectorised [bs, nb, N] tensor ops with
 the kernels' formulas in the kernels' order; only the order of the sum
 over individuals differs (torch.sum against a strided lane sum and a
-shuffle butterfly), so the two agree to float32 rounding and, where that
+shuffle butterfly), and maf_state_grad fuses its cell evaluation into
+multiply-adds, so the two agree to float32 rounding and, where that
 rounding flips the ``|prev - freq| > EPSILON`` test of a site, to one
 damped step of that site (about 1e-5).
 
@@ -146,21 +148,44 @@ def _state_grad_plain(g0, g2, p, K0, tally=None):
     return torch.stack(st + _sums_plain(q, T, st[0], True))
 
 
+# most cells a lane of kernel A keeps in registers (eight planes each)
+STATE_GRAD_MAX_CELLS = 8
+
+
+def state_grad_geometry(N):
+    """(G, C) of kernel A (csrc/maf_state_grad.cu) for N individuals: G
+    lanes a site (8, 16 or 32; 32 / G sites a warp), C cells a lane with
+    their planes in registers. The fewest lane slots G * C >= N with C <=
+    STATE_GRAD_MAX_CELLS, the smaller G on a tie (fewer butterfly steps,
+    more sites a warp); above 32 * STATE_GRAD_MAX_CELLS individuals (32, 0):
+    the cells are read again and their planes recomputed at every pass."""
+    best = None
+    for G in (8, 16, 32):
+        C = -(-int(N) // G)
+        if C <= STATE_GRAD_MAX_CELLS and (best is None
+                                          or G * C < best[0] * best[1]):
+            best = (G, C)
+    return best or (32, 0)
+
+
 def _k_maf_state_grad(g0, g2, p, K0):
     """K0 real damped passes per site, then the sums and their
     freq-derivatives: [8, bs, nb], rows (freq, num, den, active, cn, cd,
     dcn, dcd).
 
     Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py
-    :_run_state_grad_slab. Bound by bytes (three slabs read once); the
-    cells' planes stay in registers across the passes."""
+    :_run_state_grad_slab. Bound by instruction issue (every cell is
+    evaluated K0 + 1 times): G lanes a site with C cells each
+    (state_grad_geometry), the cells' planes in registers across the
+    passes, fused multiply-adds in the cell evaluation."""
     if not g0.is_cuda:
         return _state_grad_plain(g0, g2, p, K0)
     bs, nb, N, sfx = _check_slabs("maf_state_grad", g0, g2, p)
+    G, C = state_grad_geometry(N)
     out = torch.empty((8, bs, nb), dtype=_f32, device=g0.device)
     rc = getattr(cuda_lib.load(), "ngsf_maf_state_grad" + sfx)(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
-        N, int(K0), cuda_lib.stream())
+        N, int(K0), G, C, cuda_lib.stream())
     cuda_lib.check(rc, "maf_state_grad" + sfx)
     LAUNCHES["maf_state_grad" + sfx] += 1
     return out

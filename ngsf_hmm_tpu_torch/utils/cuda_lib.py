@@ -75,7 +75,7 @@ _SIGNATURES = {
     "ngsf_combine_blocks": [_P, _L, _L, _L] + [_P] * 4 + [_I] * 4 + [_P],
     "ngsf_viterbi_f32": [_P] * 10 + [_I] * 4 + [_P],
     "ngsf_viterbi_f64": [_P] * 10 + [_I] * 4 + [_P],
-    "ngsf_maf_state_grad": [_P] * 4 + [_L, _I, _I, _P],
+    "ngsf_maf_state_grad": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
     "ngsf_maf_exact": [_P] * 4 + [_L, _I, _I, _P],

@@ -1,7 +1,8 @@
 """est_maf of the port (ngsf_hmm_tpu_torch.ops.maf, plain torch) against
 ngsf_hmm_tpu.ops.maf on the CPU, float64, from numpy seeds. The kernels of
-the freq M-step are held in tests/test_torch_maf_kernels.py and the macro
-schedules in tests/test_torch_ops.py. The files are kept small: the test
+the freq M-step are held in tests/test_torch_maf_kernels.py (kernel A's
+lane geometry here: no tensors) and the macro schedules in
+tests/test_torch_ops.py. The files are kept small: the test
 runner hands out whole files, those with the most tests first, and the
 port's quick files should not stand in the queue before the JAX package's
 long ones.
@@ -18,6 +19,7 @@ import torch
 
 from ngsf_hmm_tpu.ops import maf as j_maf
 from ngsf_hmm_tpu_torch.ops import maf as t_maf
+from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
 
 # the suite runs several workers side by side: keep torch to one thread
 torch.set_num_threads(1)
@@ -120,3 +122,31 @@ def test_est_maf_refuses_what_is_not_ported(f64_case):
     with pytest.raises(ValueError, match="linear=True"):
         t_maf.est_maf(torch.as_tensor(np.log(gl)), torch.as_tensor(F),
                       macro=True)
+
+
+def test_state_grad_geometry():
+    """Kernel A's lanes a site G and cells a lane C (ops/maf_kernels.py
+    state_grad_geometry, passed to the launch) at N = 1, 31, 32, 33, 100,
+    128, 129 and 1000: the fewest lane slots with at most
+    STATE_GRAD_MAX_CELLS cells a lane, the smaller G on a tie, and C = 0
+    (planes recomputed) past 32 such cells; every pair it picks is one
+    csrc/maf_state_grad.cu's dispatch list instantiates."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(mk.__file__).parents[1] / "csrc" /
+           "maf_state_grad.cu").read_text()
+    pairs = {(int(g), int(c)) for g, c in re.findall(r"GC\((\d+), (\d+)\)",
+                                                     src)}
+    for N, want in [(1, (8, 1)), (31, (8, 4)), (32, (8, 4)), (33, (8, 5)),
+                     (100, (16, 7)), (128, (16, 8)), (129, (32, 5)),
+                     (1000, (32, 0))]:
+        G, C = mk.state_grad_geometry(N)
+        assert (G, C) == want, N
+        assert G in (8, 16, 32) and 32 % G == 0
+        if C:
+            assert G * C >= N and C <= mk.STATE_GRAD_MAX_CELLS
+            assert G == 8 or G * C < N + G  # no smaller G fits as few slots
+        else:
+            assert N > 32 * mk.STATE_GRAD_MAX_CELLS
+        assert (G, C) in pairs, N
