@@ -6,8 +6,10 @@
 needs one CUDA device and nvcc. It
   1. requires the card and prints its name and power limit,
   2. builds the CUDA kernels from ngsf_hmm_tpu_torch/csrc (set-up time),
-     then compiles the transfer kernels and kernel A alone to print their
-     registers, spills, residency, waves and SASS loops (probe_build),
+     then compiles the transfer kernels, kernel A, maf_exact and maf_macro
+     alone to print their registers, spills, residency, waves and SASS
+     loops, and for the last two the SASS of a pass, a gradient round and
+     a window step and their issue floor (probe_build),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -19,13 +21,19 @@ needs one CUDA device and nvcc. It
      est_maf kernel (maf_macro) and the slab est_maf kernels at 33,333
      sites x 40, 32, 130 and 300 individuals (every lane geometry of
      kernel A) and maf_macro at the LD path's shape, and maf_exact on the
-     row view at 20 individuals; the stream kernels of all three sources
-     at 3,001 sites x 33 and 34 columns (every copy width of the
-     transfer-and-tangent kernel, also on slabs that start one element
-     into their storage); wherever the transfer-and-tangent kernel is
-     held, also against the product rule carried in float64; at the main
-     and restart shapes that kernel split into its step from registers
-     and its loads alone (probe_transfer); the bfloat16 gl exports
+     row view at 20 individuals and at 33,333 sites x 1, 7, 12, 31, 40,
+     100, 200 and 300 individuals (every lane geometry it can choose) on a
+     posterior with cells within EPSILON of 0 and 1; est_maf_exact,
+     macro_slab and est_maf_rows against ops/maf.est_maf run in float64
+     at the exact, main and LD shapes (f64_anchor); the stream kernels
+     of all three sources at 3,001 sites x 33 and 34 columns (every copy
+     width of the transfer-and-tangent kernel, also on slabs that start
+     one element into their storage); wherever the transfer-and-tangent
+     kernel is held, also against the product rule carried in float64;
+     at the main and restart shapes that kernel split into its step from
+     registers and its loads alone (probe_transfer); at the LD path's
+     shape maf_macro split into its real passes, its gradient rounds and
+     its windows; the bfloat16 gl exports
      ("_bf16") of the stream and slab est_maf kernels at the main path's
      shape, on bfloat16 slabs of the same gl; the one-launch slab est_maf
      (maf_macro_slab, float32 and bfloat16 slabs) at the main path's shape and at the maf_macro
@@ -72,6 +80,10 @@ needs one CUDA device and nvcc. It
 and Viterbi IBD share to another tree's log of the same run (the parent's,
 in one call). --probes runs only the measurements and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
+--maf-anchor OUT [--tree DIR] runs only the float64 anchor and the exact
+and ld paths (of DIR's package), writes their readings and final freqs
+under OUT and exits 4; --against-maf OUT then sets this run's anchor
+beside them and holds the exact and ld paths' final freqs to them.
 
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -186,19 +198,25 @@ FLOPS_CELL = {
     "block_transfer_v1": 12 + 21,
     "bw_sites_v1": 12 + 14,
     "fw_post_v1": 12 + 18,
-    # est_maf (csrc/maf_common.cuh, maf_exact.cu): the planes of a cell,
-    # one pass over it, one gradient evaluation, one exact pass, and one
-    # step of the per-site window
+    # est_maf (csrc/maf_common.cuh): the planes of a cell, one pass over
+    # it and one gradient evaluation (maf_cell), and one step of the
+    # per-site window (maf_advance); the same in the fused form of the
+    # segment kernels maf_exact and maf_macro (maf_cell_fma, with f (1 -
+    # f) once a lane and pass; the window steps of an active site,
+    # maf_advance_active)
     "maf_planes": 24,
     "maf_pass": 16,
     "maf_grad": 31,
-    "maf_exact_cell": 5,
-    "maf_exact_pass": 21,
     "maf_window_step": 16,
+    "maf_pass_fma": 15,
+    "maf_grad_fma": 30,
+    "maf_window_step_active": 12,
 }
-# maf_macro's operations: the planes of a cell, then per site the real
-# passes, gradient evaluations and window steps its data needs
-# (maf_pass, maf_grad per cell; maf_window_step per site).
+# maf_exact's operations: the planes of a cell, then per site the passes
+# its data needs (maf_pass_fma per cell); maf_macro's: the planes of a
+# cell, then per site the real passes, gradient evaluations and window
+# steps its data needs (maf_pass_fma, maf_grad_fma per cell;
+# maf_window_step_active per site).
 
 KERNELS = {
     # name: (source, TPU kernel replaced)
@@ -478,8 +496,8 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
     err = maf_compare(torch, rec, "maf_exact", e_k[None], e_p[None],
                       ["freq"])
     rec.record("maf_exact", err, ms, pms, 3 * slab_b + sites * 4,
-               cells * fc["maf_exact_cell"]
-               + total(tally) * N * fc["maf_exact_pass"])
+               cells * fc["maf_planes"]
+               + total(tally) * N * fc["maf_pass_fma"])
     log(f"[{rec.label}] maf_exact: {total(tally) / sites:.1f} passes a site")
     if p_sites is not None:
         want = tmaf.est_maf(gl_lin, check_interv(p_sites), linear=True)
@@ -520,7 +538,8 @@ def probe_fmad(torch, prep, p_slab, timer, label):
                 *ptr, a[0].data_ptr(), b.data_ptr(), bs * nb, N,
                 cuda_lib.stream()),
             "maf_exact": lambda: lib.ngsf_maf_exact(
-                *ptr, e.data_ptr(), bs * nb, N, 1, cuda_lib.stream()),
+                *ptr, e.data_ptr(), bs * nb, N, 1, *mk.exact_geometry(N),
+                cuda_lib.stream()),
         }
 
     freqs = {}
@@ -769,9 +788,11 @@ def resident_ctas(regs, threads, smem=0):
 
 
 def _sass_loops(sass):
-    """Per function of a cuobjdump -sass listing: its instruction count and
-    its loops (a backward branch and its target), each as (instructions,
-    opcode counts)."""
+    """Per function of a cuobjdump -sass listing: its instruction count, its
+    loops (a backward branch and its target), each as (instructions,
+    opcode counts), largest first, the largest loop's instructions outside
+    the loops nested in it, and the loops with their ranges
+    (instructions, opcode counts, first, last)."""
     import re
 
     funcs, cur = {}, None
@@ -820,12 +841,100 @@ def _sass_loops(sass):
             inner = [(t, i) for _, _, t, i in loops[1:] if t0 <= t and i <= i0]
             flat = sum(1 for q in range(t0, i0 + 1)
                        if not any(t <= q <= i for t, i in inner))
-        out[name] = (len(ins), [lp[:2] for lp in loops], flat)
+        out[name] = (len(ins), [lp[:2] for lp in loops], flat, loops)
     return out
 
 
 PROBE_SOURCES = ("block_transfer_grad.cu", "block_transfer.cu",
-                 "maf_state_grad.cu")
+                 "maf_state_grad.cu", "maf_exact.cu", "maf_macro.cu")
+# probe_build prints these two for the instantiation each shape uses only
+MAF_PROBE_SOURCES = ("maf_exact.cu", "maf_macro.cu")
+
+
+def _maf_geometry(kernel, args, N):
+    """(sites a warp, sites whose windows one warp carries) of a maf_exact
+    or maf_macro instantiation with template arguments `args`, or None
+    if N individuals would not run it. The segment kernels' arguments
+    are (G, C[, T]) (exact_geometry / state_grad_geometry); a tree whose
+    kernels give a site one warp has (CPL[, T]), CPL chosen from N as its
+    NGSF_MAF_DISPATCH did; every warp there runs its own site's windows."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    ints = [int(a.replace("(int)", "")) for a in args
+            if a.replace("(int)", "").strip().lstrip("-").isdigit()]
+    if len(ints) >= 2:
+        pick = (mk.exact_geometry if kernel == "exact"
+                else mk.state_grad_geometry)(N)
+        if tuple(ints[:2]) != tuple(pick):
+            return None
+        spw = 32 // ints[0]
+        return spw, spw * 8
+    cpl = 1 if N <= 32 else 2 if N <= 64 else 4 if N <= 128 else 0
+    return (1, 1) if ints == [cpl] else None
+
+
+def maf_probe_line(nice, props, loops, shapes):
+    """probe_build's line for a maf_exact or maf_macro instantiation at
+    each shape that runs it: registers, spills, resident CTAs, waves, the
+    SASS of a pass (the pass loop, both reciprocal paths: an upper
+    estimate) for the sites of a warp and, for maf_macro, of a gradient
+    round outside its window and of a window step, and the issue floor:
+    those instructions at the shape's full schedule (ITER_MAX + 1 passes
+    for maf_exact; K0 passes, every gradient round and window step for
+    maf_macro: an upper estimate of the work) over 4 warp instructions a
+    cycle on 132 SMs at the highest SM clock."""
+    import re
+
+    m = re.search(r"k_maf_(exact|macro)<([^>]*)>", nice)
+    if not m or not loops:
+        return
+    kernel, args = m.group(1), m.group(2).split(",")
+    n_ins, _, _, lps = loops
+    nested = lambda a, b: a[2] <= b[2] and b[3] <= a[3] and a != b
+    top = [lp for lp in lps if not any(nested(o, lp) for o in lps)]
+    flat = lambda lp: sum(1 for q in range(lp[2], lp[3] + 1) if not any(
+        o[2] <= q <= o[3] for o in lps if nested(lp, o)))
+    for label, sh in shapes.items():
+        if (kernel == "exact") != ("passes" in sh) or (
+                "bfloat16" in nice) != sh.get("bf16", False):
+            continue
+        geo = _maf_geometry(kernel, args, sh["N"])
+        if geo is None:
+            continue
+        spw, spb = geo
+        warps = -(-sh["sites"] // spw)
+        blocks = -(-warps // 8)
+        ctas = resident_ctas(props["regs"], 256, props["smem"])
+        rate = 4 * SM_COUNT * SM_CLOCK_MHZ * 1e3  # warp instructions a ms
+        if kernel == "exact":
+            pas = flat(max(top, key=lambda lp: lp[0]))
+            work = f"pass loop {pas} SASS for {spw} sites"
+            floor = pas * warps * sh["passes"] / rate
+            sched = f"{sh['passes']} passes a site"
+        else:
+            rnd = [lp for lp in top if any(nested(lp, o) for o in lps)]
+            if not rnd:
+                continue
+            rnd = max(rnd, key=lambda lp: lp[0])
+            win = max((o for o in lps if nested(rnd, o)), key=lambda o: o[0])
+            pas = max((lp for lp in top if lp is not rnd),
+                      key=lambda lp: lp[0], default=None)
+            pas = flat(pas) if pas else 0
+            grad, step = flat(rnd), flat(win)
+            K0, Ms = sh["K0"], sh["Ms"]
+            # a window step serves spb sites (one warp a block) or one
+            steps = blocks if spb > 1 else sh["sites"]
+            floor = (pas * warps * K0 + grad * warps * len(Ms)
+                     + step * steps * sum(Ms)) / rate
+            work = (f"pass loop {pas} SASS for {spw} sites, gradient round "
+                    f"{grad} for {spw}, window step {step} for {spb}")
+            sched = f"K0 = {K0}, windows {Ms}"
+        log(f"[probe build] {nice[:80]} at {label} ({sh['sites']} x "
+            f"{sh['N']}): {props['regs']} registers, spills "
+            f"{props.get('spill', (0, 0))}, smem {props['smem']} B; {ctas} "
+            f"CTAs of 256 an SM ({blocks / (SM_COUNT * ctas):.2f} waves); "
+            f"{n_ins} SASS instructions; {work}; issue floor "
+            f"{floor:.3f} ms at the full schedule ({sched})")
 
 
 def probe_build(lanes_by_source, csrc=None):
@@ -896,7 +1005,11 @@ def probe_build(lanes_by_source, csrc=None):
             p = props[name]
             if "regs" not in p:
                 continue
-            n_ins, lp, flat = loops.get(name, (0, [], 0))
+            shapes = lanes_by_source.get(src, {})
+            if src in MAF_PROBE_SOURCES:
+                maf_probe_line(nice, p, loops.get(name), shapes)
+                continue
+            n_ins, lp, flat, _ = loops.get(name, (0, [], 0, []))
             threads = 256 if "maf" in src else 128
             # the staged transfer kernel's dynamic shared memory: three
             # tiles of 8 sites x 128 lanes of both slabs, 3 blocks' compacts
@@ -907,7 +1020,6 @@ def probe_build(lanes_by_source, csrc=None):
                 smem += 3 * 2 * 8 * 128 * esz + 4 * 3 * 2 * 3 * 8 + (
                     3 * 8 * 32 if "GlSource" in nice else 0)
             ctas = resident_ctas(p["regs"], threads, smem)
-            shapes = lanes_by_source.get(src, {})
             waves = ", ".join(
                 f"{k} {v[0] / (SM_COUNT * ctas * threads):.2f} waves"
                 for k, v in shapes.items()) if ctas else "not resident"
@@ -998,17 +1110,27 @@ def probe_lanes(S, N, S_c, R=20):
     """(threads, cells) of a launch of each PROBE_SOURCES kernel: a lane
     per (block, column) for the stream kernels at the main path's shape
     and at the restart path's (R replicates of the check shape), G lanes
-    a site for kernel A at the main path's shape."""
+    a site for kernel A at the main path's shape; for maf_exact the exact
+    path's shape (S_c x 20) and for maf_macro the main path's (float32 and
+    bfloat16 slabs), each with its schedule (maf_probe_line)."""
     from ngsf_hmm_tpu_torch.models.hmm_kernels import pick_geom2
+    from ngsf_hmm_tpu_torch.ops.maf import macro_rounds, macro_schedule
     from ngsf_hmm_tpu_torch.ops.maf_kernels import state_grad_geometry
+    from ngsf_hmm_tpu_torch.utils.constants import ITER_MAX
 
     bs, nb = pick_geom2(S, N)
     bs_r, nb_r = pick_geom2(S_c, R * N)
     stream = {"main": (nb * N, bs * nb * N),
               "restart": (nb_r * R * N, bs_r * nb_r * R * N)}
+    K0, M = macro_schedule(N)
+    macro = dict(sites=S, N=N, K0=K0, Ms=macro_rounds(K0, M))
     return {"block_transfer_grad.cu": stream, "block_transfer.cu": stream,
             "maf_state_grad.cu": {
-                "main": (bs * nb * state_grad_geometry(N)[0], bs * nb * N)}}
+                "main": (bs * nb * state_grad_geometry(N)[0], bs * nb * N)},
+            "maf_exact.cu": {"exact": dict(sites=S_c, N=20,
+                                           passes=ITER_MAX + 1)},
+            "maf_macro.cu": {"main": macro,
+                             "main bf16": dict(macro, bf16=True)}}
 
 
 def run_probes(torch, dev, args, R=20):
@@ -1069,11 +1191,13 @@ def run_probes(torch, dev, args, R=20):
     return 4
 
 
-def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
+def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha, raw=False):
     """What the LD path's freq M-step reads at this shape: the linear gl
     planes (maf_kernels.gl_rows) and the snapped posterior [S, N] that the
     chain kernels give at (freq, F, alpha); also the gl-slab prep and the
-    snapped posterior slab, est_maf_slab's view of the same data."""
+    snapped posterior slab, est_maf_slab's view of the same data. raw=True
+    also returns the posterior unsnapped, [S, N] and as the slab (what
+    the main path's freq M-step reads)."""
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
     from ngsf_hmm_tpu_torch.ops.hwe import check_interv
@@ -1086,8 +1210,90 @@ def maf_rows_inputs(torch, dev, gl, dist, freq, F, alpha):
         torch.as_tensor(F).to(dev, f32), torch.as_tensor(alpha).to(dev, f32),
         prep, hk.freq_compact(torch.as_tensor(freq).to(dev, f32), prep),
         return_slab=True)
-    return (mk.gl_rows(gl_t), check_interv(p_sites).contiguous(), prep,
-            check_interv(p_slab))
+    out = (mk.gl_rows(gl_t), check_interv(p_sites).contiguous(), prep,
+           check_interv(p_slab))
+    return out + (p_sites, p_slab) if raw else out
+
+
+def exact_shape_inputs(torch, dev, S, N, seed):
+    """The exact path's data (simulate at S x N, two chromosomes) and what
+    its freq M-step reads from the chain kernels at the initial
+    parameters: (simulate's tuple, the float32 log gl [S, N, 3] on the
+    card, the gl-slab prep, the raw posterior [S, N] and slab)."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+
+    f32 = torch.float32
+    data = simulate(S, N, seed, n_chrom=2)
+    gl_x, dist_x, freq_x, F0_x, a0_x = data
+    gl_t = torch.as_tensor(gl_x).to(dev, f32)
+    prep = hk.prepare_gl_inputs(torch.exp(gl_t),
+                                torch.as_tensor(dist_x).to(dev, f32))
+    p_sites, _, _, p_slab = hk.posteriors_fused(
+        torch.as_tensor(F0_x).to(dev, f32), torch.as_tensor(a0_x).to(dev, f32),
+        prep, hk.freq_compact(torch.as_tensor(freq_x).to(dev, f32), prep),
+        return_slab=True)
+    return data, gl_t, prep, p_sites, p_slab
+
+
+# est_maf kernels against ops/maf.est_maf on float64 copies of what they
+# read (f64_anchor): results by "[shape] function"; MAF_F64_STEP: a freq
+# further than this from float64 counts as a site that stopped at another
+# pass than float64 (a damped step there is about EPSILON)
+ANCHORS = {}
+MAF_F64_STEP = 1e-6
+
+
+def f64_anchor(torch, label, name, freq, g0, g2, p, macro):
+    """The distance of an est_maf function's freq [S] from ops/maf.est_maf
+    (linear, exact or macro=True) run in float64 on float64 copies of the
+    linear gl planes g0 / g2 [S, N] and the posterior p [S, N] it read
+    (snapped already where the function snaps): the largest and the mean
+    absolute difference and the share of sites further than
+    MAF_F64_STEP (stopped at another pass than float64). Logs and keeps
+    them in ANCHORS; fails if a freq is further than MAF_FREQ_ATOL (a site
+    that stops at another pass moves by one damped step, less than that).
+    The share is information: it depends on the data."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+
+    d64 = torch.float64
+    g0d, g2d = g0.to(d64), g2.to(d64)
+    want = tmaf.est_maf(torch.stack((g0d, 1.0 - g0d - g2d, g2d), -1),
+                        p.to(d64), linear=True, macro=macro)
+    del g0d, g2d
+    d = (freq.to(d64) - want).abs()
+    r = dict(max=float(d.max()), mean=float(d.mean()),
+             share=float((d > MAF_F64_STEP).double().mean()))
+    ANCHORS[f"[{label}] {name}"] = r
+    log(f"[{label}] {name} against ops/maf.est_maf in float64 "
+        f"({'macro' if macro else 'exact'}): freq max diff {r['max']:.4g}, "
+        f"mean {r['mean']:.4g}, sites further than {MAF_F64_STEP:g}: "
+        f"{r['share']:.4g}")
+    if r["max"] > MAF_FREQ_ATOL:
+        fail(f"[{label}] {name}: freq {r['max']} from float64")
+
+
+def anchor_exact(torch, label, gl_t, prep, p_sites, p_slab):
+    """est_maf_exact (maf_exact, snapping the raw posterior slab) against
+    float64 at the exact path's shape."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+
+    g0, g2 = mk.gl_rows(gl_t)
+    f64_anchor(torch, label, "est_maf_exact", mk.est_maf_exact(prep, p_slab),
+               g0, g2, check_interv(p_sites), False)
+
+
+def anchor_macro(torch, rows, p_m, prep, p_raw, slab_raw):
+    """macro_slab (kernel 9 on main's float32 slabs and raw posterior slab)
+    and est_maf_rows (maf_macro on the LD path's rows and snapped
+    posterior) against float64 at the main path's shape."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    g0, g2 = rows
+    f64_anchor(torch, "main shape", "macro_slab", mk.macro_slab(
+        prep, slab_raw), g0, g2, p_raw, True)
+    f64_anchor(torch, "ld shape", "est_maf_rows", mk.est_maf_rows(g0, g2, p_m),
+               g0, g2, p_m, True)
 
 
 def check_maf_shapes(torch, dev, results, seed, S_m, Ns=(40, 32, 130, 300)):
@@ -1115,6 +1321,52 @@ def check_maf_shapes(torch, dev, results, seed, S_m, Ns=(40, 32, 130, 300)):
         del gl_m, rows, p_m, prep_m, slab_m
 
 
+# maf_exact's extra shapes: one N for each (G, C) family exact_geometry
+# can choose (G = 1 at C = 1 and 7, G = 2, 4, 8, 16, 32, and the planes
+# recomputed past 256 individuals)
+EXACT_NS = (1, 7, 12, 31, 40, 100, 200, 300)
+
+
+def check_exact_shapes(torch, dev, results, seed, S_e, Ns=EXACT_NS):
+    """maf_exact against its plain version at S_e sites for each N of Ns,
+    with snap and without, on simulate's gl and a posterior with cells
+    within EPSILON of 0 and of 1 and exact zeros and ones (so the snap
+    and the het floor engage). Keeps the largest error in
+    results["maf_exact"]."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.utils.constants import EPSILON
+
+    f32 = torch.float32
+    err = 0.0
+    for N_e in Ns:
+        gl, dist, _, _, _ = simulate(S_e, N_e, seed + N_e)
+        rng = np.random.default_rng(seed + N_e)
+        p = rng.random((S_e, N_e), dtype=np.float32)
+        u = rng.random((S_e, N_e))
+        p[u < 0.05] *= EPSILON  # within EPSILON of 0
+        near1 = (u >= 0.05) & (u < 0.1)
+        p[near1] = 1.0 - p[near1] * EPSILON  # within EPSILON of 1
+        p[(u >= 0.1) & (u < 0.12)] = 1.0
+        p[(u >= 0.12) & (u < 0.13)] = 0.0
+        prep = hk.prepare_gl_inputs(
+            torch.exp(torch.as_tensor(gl).to(dev, f32)),
+            torch.as_tensor(dist).to(dev, f32))
+        slab = hk.pack_sites2(torch.as_tensor(p).to(dev), prep, 0.5)
+        rec = Recorder(torch, f"exact shape N={N_e} {mk.exact_geometry(N_e)}",
+                       {})
+        g0, g2 = prep["g0"], prep["g2"]
+        for snap in (True, False):
+            k = mk._k_maf_exact(g0, g2, slab, snap)
+            w = mk._exact_plain(g0, g2, slab, snap)
+            err = max(err, maf_compare(
+                torch, rec, f"maf_exact (snap {snap})", k.reshape(1, -1),
+                w.reshape(1, -1), ["freq"]))
+        del gl, prep, slab
+    r = results["maf_exact"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
 def check_maf_macro(torch, rows, p, rec, timer, slab=None):
     """maf_macro against its plain version on [S, N] rows (rows = (g0, g2),
     p the snapped posterior) at this shape's schedule. slab = (prep,
@@ -1136,13 +1388,23 @@ def check_maf_macro(torch, rows, p, rec, timer, slab=None):
     work = {kind: float(torch.stack(v).sum()) for kind, v in tally.items()}
     fc = FLOPS_CELL
     rec.record("maf_macro", err, ms, pms, 3 * S * N * 4 + S * 4,
-               S * N * fc["maf_planes"] + work["pass"] * N * fc["maf_pass"]
-               + work["grad"] * N * fc["maf_grad"]
-               + work["step"] * fc["maf_window_step"])
+               S * N * fc["maf_planes"] + work["pass"] * N
+               * fc["maf_pass_fma"] + work["grad"] * N * fc["maf_grad_fma"]
+               + work["step"] * fc["maf_window_step_active"])
     log(f"[{rec.label}] maf_macro: schedule K0 = {K0}, windows {Ms}; per "
         f"site {work['pass'] / S:.2f} real passes, {work['grad'] / S:.2f} "
         f"gradient evaluations, {work['step'] / S:.1f} window steps")
     if slab is not None:
+        # the schedule's parts: the real passes alone, then with the
+        # gradient rounds (windows of 0 steps), then the whole
+        ms_p = timer(lambda: mk._k_maf_macro(g0, g2, p, K0, ()))[1]
+        ms_g = timer(lambda: mk._k_maf_macro(g0, g2, p, K0,
+                                             (0,) * len(Ms)))[1]
+        step_us = (ms - ms_g) * 1e3 / sum(Ms)
+        log(f"[{rec.label}] maf_macro split: the {K0} real passes alone "
+            f"{ms_p:.3f} ms, with the {len(Ms)} gradient rounds {ms_g:.3f} "
+            f"ms, with the windows {ms:.3f} ms ({step_us:.2f} us a window "
+            "step)")
         prep, p_slab = slab
         f_slab, ms_slab = timer(lambda: mk.est_maf_slab(prep, p_slab))
         f_rows, ms_rows = timer(lambda: mk.est_maf_rows(g0, g2, p))
@@ -1181,9 +1443,9 @@ def check_macro_slab(torch, prep, p_slab, rec, timer):
     fc = FLOPS_CELL
     rec.record(name, err, ms, pms,
                2 * cells * g0.element_size() + cells * 4 + sites * 4,
-               cells * fc["maf_planes"] + work["pass"] * N * fc["maf_pass"]
-               + work["grad"] * N * fc["maf_grad"]
-               + work["step"] * fc["maf_window_step"])
+               cells * fc["maf_planes"] + work["pass"] * N
+               * fc["maf_pass_fma"] + work["grad"] * N * fc["maf_grad_fma"]
+               + work["step"] * fc["maf_window_step_active"])
     f_macro = mk.macro_slab(prep, p_slab)
     if not torch.equal(f_macro, mk._site_vector(k, prep)):
         fail(f"[{rec.label}] macro_slab differs from its kernel")
@@ -1931,6 +2193,7 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
             fail(f"[{label}] {len(maf_ms)} freq M-steps in {res.n_iters} "
                  "iterations")
     finals = (freq, to_np(st.ind_lkl))
+    FINAL_FREQ[label] = freq
     if against is not None:
         d_freq = float(np.abs(freq - against[0]).max())
         d_ll = float((np.abs(finals[1] - against[1])
@@ -1972,6 +2235,8 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
 
 # per path: L-BFGS streams per iteration, final tot_lkl, Viterbi IBD share
 SUMMARY = {}
+# per path: the final freq [S]
+FINAL_FREQ = {}
 
 
 def against_parent(path, label="main"):
@@ -2001,6 +2266,65 @@ def against_parent(path, label="main"):
         f"{mine['ibd']} (there {ibd})")
     if mine["streams"] != streams or rel > 1e-6 or mine["ibd"] != ibd:
         fail(f"[{label}] differs from {path}")
+
+
+def run_maf_anchor(torch, dev, args):
+    """--maf-anchor OUT: the float64 anchor of the one-launch est_maf
+    functions (est_maf_exact at the exact path's shape, macro_slab at the
+    main path's, est_maf_rows on the LD path's rows), then the exact and
+    ld paths, on this tree's package or on --tree's; writes the anchor's
+    readings (anchor.json) and the two paths' final freqs
+    ({exact,ld}_freq.npy) under OUT for --against-maf. Prints no result
+    and returns 4."""
+    import pathlib
+
+    out = pathlib.Path(args.maf_anchor)
+    out.mkdir(parents=True, exist_ok=True)
+    (gl_x, dist_x, freq_x, F0_x, a0_x), gl_t, prep, p_sites, p_slab = (
+        exact_shape_inputs(torch, dev, args.check_sites, 20, args.seed + 11))
+    anchor_exact(torch, "exact shape N=20", gl_t, prep, p_sites, p_slab)
+    del gl_t, prep, p_sites, p_slab
+    gl, dist, freq, F0, a0 = simulate(args.sites, args.ind, args.seed)
+    rows, p_m, prep, _, p_raw, slab_raw = maf_rows_inputs(
+        torch, dev, gl, dist, freq, F0, a0, raw=True)
+    anchor_macro(torch, rows, p_m, prep, p_raw, slab_raw)
+    del rows, p_m, prep, p_raw, slab_raw
+    run_path(torch, dev, "exact", gl_x, dist_x, freq_x, F0_x, a0_x, 1,
+             CHAIN_KERNELS + ("maf_exact",), writers=False)
+    run_ld_path(torch, dev, "ld", gl, dist, freq, F0, a0, 1)
+    (out / "anchor.json").write_text(json.dumps(ANCHORS, indent=1))
+    for label in ("exact", "ld"):
+        np.save(out / f"{label}_freq.npy", FINAL_FREQ[label])
+    log(f"maf anchor written to {out}; no result is printed for it")
+    return 4
+
+
+def against_maf(path):
+    """Sets this run's float64 anchor beside another tree's and holds the
+    exact and ld paths' final freqs to that tree's (run_maf_anchor's
+    files under `path`, the same data from the same seed): prints whether
+    each function's largest and mean distance from float64 and its share
+    of sites off by a step are no larger than there (information); fails
+    unless the final freqs are within MAF_FREQ_ATOL of there."""
+    import pathlib
+
+    path = pathlib.Path(path)
+    there = json.loads((path / "anchor.json").read_text())
+    for key, r in there.items():
+        mine = ANCHORS.get(key)
+        if mine is None:
+            fail(f"{key}: no float64 anchor in this run")
+        closer = {k: mine[k] <= r[k] for k in ("max", "mean", "share")}
+        log(f"{key} against {path}: from float64 max {mine['max']:.4g} "
+            f"(there {r['max']:.4g}), mean {mine['mean']:.4g} (there "
+            f"{r['mean']:.4g}), sites off {mine['share']:.4g} (there "
+            f"{r['share']:.4g}); no further than there: {closer}")
+    for label in ("exact", "ld"):
+        d = float(np.abs(FINAL_FREQ[label]
+                         - np.load(path / f"{label}_freq.npy")).max())
+        log(f"[{label}] final freq against {path}: max diff {d:.3g}")
+        if d > MAF_FREQ_ATOL:
+            fail(f"[{label}] final freq off {path}'s by {d}")
 
 
 def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
@@ -2222,6 +2546,7 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
         fail(f"[{label}] the LD emissions of sites >= 1 moved")
     if freq_est == 2 and torch.equal(st.e_prob[1:1001], e_head):
         fail(f"[{label}] the LD emissions were not recomputed")
+    FINAL_FREQ[label] = freq
     f_err = float(np.abs(freq - freq_true).mean())
     corr = float(np.corrcoef(freq, freq_true)[0, 1])
     log(f"[{label}] freq: mean |freq - simulated| {f_err:.4f}, correlation "
@@ -2353,7 +2678,22 @@ def main():
     ap.add_argument("--probes", action="store_true",
                     help="only the build, transfer and est_maf probes at "
                     "the main and restart shapes; exits 4")
+    ap.add_argument("--maf-anchor", metavar="OUT",
+                    help="only the float64 anchor of the one-launch "
+                    "est_maf functions and the exact and ld paths, their "
+                    "readings and final freqs written under OUT; exits 4")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="with --maf-anchor: run another tree's package "
+                    "(its ngsf_hmm_tpu_torch under DIR)")
+    ap.add_argument("--against-maf", metavar="DIR",
+                    help="hold the float64 anchor and the exact and ld "
+                    "paths' final freqs to another tree's --maf-anchor "
+                    "files under DIR")
     args = ap.parse_args()
+    if args.tree:
+        if not args.maf_anchor:
+            ap.error("--tree needs --maf-anchor")
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
 
@@ -2390,6 +2730,10 @@ def main():
             probe_build(probe_lanes(args.sites, args.ind, args.check_sites),
                         args.probe_build)
             return 4
+        if args.maf_anchor:
+            cuda_lib.load()
+            log(f"[build] {cuda_lib.CSRC} -> {cuda_lib.build()}")
+            return run_maf_anchor(torch, dev, args)
         # ---- phase 2: build
         t0 = time.perf_counter()
         if args.ptxas:
@@ -2430,21 +2774,14 @@ def main():
     log(f"[check] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    gl_x, dist_x, freq_x, F0_x, a0_x = simulate(S_c, N_x, args.seed + 11,
-                                                n_chrom=2)
+    (gl_x, dist_x, freq_x, F0_x, a0_x), gl_t, prep, p_sites, p_slab = (
+        exact_shape_inputs(torch, dev, S_c, N_x, args.seed + 11))
     f32 = torch.float32
-    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
-    gl_t = torch.as_tensor(gl_x).to(dev, f32)
-    prep = hk.prepare_gl_inputs(torch.exp(gl_t),
-                                torch.as_tensor(dist_x).to(dev, f32))
-    p_sites, _, _, p_slab = hk.posteriors_fused(
-        torch.as_tensor(F0_x).to(dev, f32), torch.as_tensor(a0_x).to(dev, f32),
-        prep, hk.freq_compact(torch.as_tensor(freq_x).to(dev, f32), prep),
-        return_slab=True)
     exact_results = {}
     rec_x = Recorder(torch, f"exact shape N={N_x}", exact_results)
     check_maf_kernels(torch, dev, prep, p_slab, rec_x, Timer(torch, dev),
                       slab=False, p_sites=p_sites, gl_lin=torch.exp(gl_t))
+    anchor_exact(torch, rec_x.label, gl_t, prep, p_sites, p_slab)
     # the LD path's freq M-step below 32 individuals: maf_exact on the
     # [S, 1, N] row view of the gl planes and the snapped posterior
     from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
@@ -2459,6 +2796,10 @@ def main():
     exact_results["maf_exact"]["max_abs_err"] = max(
         exact_results["maf_exact"]["max_abs_err"], err)
     del gl_t, prep, p_sites, p_slab, g0_x, g2_x, p_x
+    # one shape for each lane geometry of maf_exact
+    check_exact_shapes(torch, dev, exact_results, args.seed + 19,
+                       333 if args.rehearse else 33_333,
+                       (1, 7, 12, 31, 40) if args.rehearse else EXACT_NS)
     log(f"[exact shape] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2472,11 +2813,12 @@ def main():
     t0 = time.perf_counter()
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
                   probes=True, bf16=True)
-    rows, p_m, prep, p_slab = maf_rows_inputs(torch, dev, gl, dist, freq,
-                                              F0, a0)
+    rows, p_m, prep, p_slab, p_raw, slab_raw = maf_rows_inputs(
+        torch, dev, gl, dist, freq, F0, a0, raw=True)
     check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
                     Timer(torch, dev), slab=(prep, p_slab))
-    del rows, p_m, prep, p_slab
+    anchor_macro(torch, rows, p_m, prep, p_raw, slab_raw)
+    del rows, p_m, prep, p_slab, p_raw, slab_raw
     log(f"[main shape] kernels checked in {time.perf_counter() - t0:.1f} s")
 
     # ---- the emission-slab kernels: at the ragged check shape (one
@@ -2538,6 +2880,8 @@ def main():
     paths["restart"] = run_restart_path(torch, dev, gl_c, dist_c, freq_c,
                                         R, args.seed + 5)
     del gl_c
+    if args.against_maf:
+        against_maf(args.against_maf)
     counts = {name: sum(c.get(name, 0) for c in paths.values())
               for name in KERNELS}
     log(f"[paths] launches per path: {json.dumps(paths)}")

@@ -13,15 +13,13 @@
 //     a lane with their planes in registers (C == 0: recomputed from cache
 //     at every evaluation, for large N), so the lane slots fill (N = 100:
 //     G = 16, C = 7, 100 of 112) and each sum is a log2(G)-step butterfly
-//     on the segment, shared by the warp's sites;
+//     on the segment, shared by the warp's sites (MafSeg, maf_common.cuh);
 //   * each cell in the FMA form (maf_cell_fma); the reciprocal stays exact,
 //     its range tested once a pass for all of a lane's cells (rcp_fast);
 //   * a warp leaves its pass loop when all its sites are inactive; an
 //     inactive site's pass is a no-op, as in the plain version.
 // The sums over individuals run in another order than the plain version's
 // torch.sum, and fused: chip_smoke.py holds the kernel to it at MAF_RTOL.
-#include <type_traits>
-
 #include "maf_common.cuh"
 
 template <int G, int C, class T>
@@ -38,77 +36,20 @@ __global__ void __launch_bounds__(32 * NGSF_MAF_WARPS)
     if (first >= sites) return;  // the whole warp
     const long long site = first + sub;
     const bool valid = site < sites;
-    const long long base = (valid ? site : first) * N;
-    const T* s0 = g0 + base;
-    const T* s2 = g2 + base;
-    const float* sp = p + base;
-
-    MafPlanes q[C > 0 ? C : 1];
-    float t = 0.0f;
-    if (C > 0) {
-#pragma unroll
-        for (int c = 0; c < (C > 0 ? C : 1); ++c) {
-            const int n = gl + G * c;
-            if (valid && n < N) {
-                const float F = __ldg(sp + n);
-                q[c] = maf_planes(ld_gl(s0 + n), ld_gl(s2 + n), F);
-                t += 2.0f - F;
-            } else {
-                q[c] = maf_planes_none();
-            }
-        }
-    } else if (valid) {
-        for (int n = gl; n < N; n += G) t += 2.0f - __ldg(sp + n);
-    }
-    const float T2mF = seg_sum<G>(t);
-
-    // the lane's partial sums at freq f
-    auto sums = [&](auto grad, float f, float& a, float& b, float& da,
-                    float& db) {
-        constexpr bool GRAD = decltype(grad)::value;
-        const float g = __fmaf_rn(-f, f, f);
-        a = b = da = db = 0.0f;
-        if (C > 0) {
-            constexpr int CC = C > 0 ? C : 1;
-            float dn[CC], lo, hi;
-#pragma unroll
-            for (int c = 0; c < CC; ++c) {
-                dn[c] = maf_den(q[c], f);
-                lo = c ? fminf(lo, dn[c]) : dn[c];
-                hi = c ? fmaxf(hi, dn[c]) : dn[c];
-            }
-            if (__all_sync(0xffffffffu, lo >= NGSF_RCP_FAST_LO &&
-                                            hi < NGSF_RCP_FAST_HI)) {
-#pragma unroll
-                for (int c = 0; c < CC; ++c)
-                    maf_cell_fma<GRAD>(q[c], f, g, rcp_fast(dn[c]), a, b,
-                                       da, db);
-                return;
-            }
-#pragma unroll
-            for (int c = 0; c < CC; ++c)
-                maf_cell_fma<GRAD>(q[c], f, g, 1.0f / dn[c], a, b, da, db);
-        } else if (valid) {
-            for (int n = gl; n < N; n += G) {
-                const MafPlanes pl = maf_planes(ld_gl(s0 + n),
-                                                ld_gl(s2 + n), __ldg(sp + n));
-                maf_cell_fma<GRAD>(pl, f, g, 1.0f / maf_den(pl, f), a, b, da,
-                                   db);
-            }
-        }
-    };
+    MafSeg<G, C, T> s;
+    s.load(g0, g2, p, valid ? site : first, valid, N, gl, false);
 
     float freq = 0.01f, num = 0.0f, den = 0.0f;
     float active = valid ? 1.0f : 0.0f;
     float a, b, da, db;
     for (int k = 0; k < K0; ++k) {
         if (!__any_sync(0xffffffffu, active != 0.0f)) break;
-        sums(std::false_type{}, freq, a, b, da, db);
+        s.template sums<false>(freq, a, b, da, db);
         maf_advance(freq, num, den, active, seg_sum<G>(a),
-                    T2mF + seg_sum<G>(b), k + 1 <= NGSF_MAF_ITER_MAX);
+                    s.T2mF + seg_sum<G>(b), k + 1 <= NGSF_MAF_ITER_MAX);
     }
-    sums(std::true_type{}, freq, a, b, da, db);
-    const float cn = seg_sum<G>(a), cd = T2mF + seg_sum<G>(b);
+    s.template sums<true>(freq, a, b, da, db);
+    const float cn = seg_sum<G>(a), cd = s.T2mF + seg_sum<G>(b);
     const float dcn = seg_sum<G>(da), dcd = seg_sum<G>(db);
     const float row[8] = {freq, num, den, active, cn, cd, dcn, dcd};
     float v = row[0];
@@ -120,10 +61,8 @@ __global__ void __launch_bounds__(32 * NGSF_MAF_WARPS)
 template <int G, int C, class T>
 static void launch_gc(const T* g0, const T* g2, const float* p, float* out,
                       long long sites, int N, int K0, cudaStream_t stream) {
-    const long long warps = (sites + 32 / G - 1) / (32 / G);
-    k_maf_state_grad<G, C, T>
-        <<<(unsigned)((warps + NGSF_MAF_WARPS - 1) / NGSF_MAF_WARPS),
-           32 * NGSF_MAF_WARPS, 0, stream>>>(g0, g2, p, out, sites, N, K0);
+    k_maf_state_grad<G, C, T><<<maf_seg_grid<G>(sites), 32 * NGSF_MAF_WARPS,
+                                0, stream>>>(g0, g2, p, out, sites, N, K0);
 }
 
 // The (G, C) pairs ops/maf_kernels.py:state_grad_geometry can choose.

@@ -5,7 +5,7 @@
 // exports: ngsf_maf_sums_grad on float32 gl slabs, ngsf_maf_sums_grad_bf16
 // on bfloat16 ones (upcast at load).
 // Bound by bytes: three slabs read once (12 bytes a cell) against about
-// 55 float operations a cell. One warp per site, as kernel A.
+// 55 float operations a cell. One warp per site (MafSite).
 #include "maf_common.cuh"
 
 template <int CPL, class T>

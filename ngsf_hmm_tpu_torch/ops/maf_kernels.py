@@ -3,9 +3,7 @@
 Inside the EM loop the gl slabs (g0, g2; g1 = 1 - g0 - g2) are resident
 run constants and the posterior comes out of the fw_post kernel in the
 same [bs, nb, N] layout, so the damped fixed point (ops/maf.py) runs
-directly on those. Five CUDA kernels (``csrc/maf_*.cu``), one warp per
-site (G lanes a site for maf_state_grad, state_grad_geometry; one thread
-per site for the window):
+directly on those. Five CUDA kernels (``csrc/maf_*.cu``):
 
   maf_state_grad  K0 real damped passes, then (cn, cd, dcn, dcd)
   maf_sums_grad   (cn, cd, dcn, dcd) at a given freq
@@ -15,6 +13,14 @@ per site for the window):
                   on the [bs * nb, N] view of the slabs it is the slab
                   kernel of the JAX package's _run_macro_slab (macro_slab,
                   counted as maf_macro_slab)
+
+maf_state_grad, maf_exact and maf_macro give a site a segment of G lanes
+and a warp 32 / G sites, each lane C cells with their planes in
+registers (state_grad_geometry; exact_geometry for maf_exact, which
+serves fewer than 32 individuals and so goes below 8 lanes a site), and
+evaluate each cell fused; maf_macro runs its windows once a site, on one
+thread of its block. maf_sums_grad gives a site one warp, maf_window a
+thread.
 
 The gl slabs may be stored in bfloat16 (models/hmm_kernels.py
 prepare_gl_inputs, gl_dtype): maf_state_grad, maf_sums_grad and
@@ -31,10 +37,10 @@ maf_macro, or maf_exact on the [S, 1, N] row view below 32 individuals.
 Each kernel has a wrapper that launches it for CUDA tensors and takes the
 plain PyTorch version beside it only for CPU tensors. The plain versions
 are a Python loop over passes of vectorised [bs, nb, N] tensor ops with
-the kernels' formulas in the kernels' order; only the order of the sum
+the kernels' Horner planes in the kernels' order; the order of the sum
 over individuals differs (torch.sum against a strided lane sum and a
-shuffle butterfly), and maf_state_grad fuses its cell evaluation into
-multiply-adds, so the two agree to float32 rounding and, where that
+shuffle butterfly), and the segment kernels fuse their cell evaluation
+into multiply-adds, so the two agree to float32 rounding and, where that
 rounding flips the ``|prev - freq| > EPSILON`` test of a site, to one
 damped step of that site (about 1e-5).
 
@@ -148,24 +154,42 @@ def _state_grad_plain(g0, g2, p, K0, tally=None):
     return torch.stack(st + _sums_plain(q, T, st[0], True))
 
 
-# most cells a lane of kernel A keeps in registers (eight planes each)
+# most cells a lane of a segment kernel keeps in registers (eight planes
+# each)
 STATE_GRAD_MAX_CELLS = 8
 
 
-def state_grad_geometry(N):
-    """(G, C) of kernel A (csrc/maf_state_grad.cu) for N individuals: G
-    lanes a site (8, 16 or 32; 32 / G sites a warp), C cells a lane with
-    their planes in registers. The fewest lane slots G * C >= N with C <=
+def _segment_geometry(N, lanes):
+    """The fewest lane slots G * C >= N over G in `lanes` with C <=
     STATE_GRAD_MAX_CELLS, the smaller G on a tie (fewer butterfly steps,
-    more sites a warp); above 32 * STATE_GRAD_MAX_CELLS individuals (32, 0):
-    the cells are read again and their planes recomputed at every pass."""
+    more sites a warp); (32, 0) where no G fits: the cells are read again
+    and their planes recomputed at every pass."""
     best = None
-    for G in (8, 16, 32):
+    for G in lanes:
         C = -(-int(N) // G)
         if C <= STATE_GRAD_MAX_CELLS and (best is None
                                           or G * C < best[0] * best[1]):
             best = (G, C)
     return best or (32, 0)
+
+
+def state_grad_geometry(N):
+    """(G, C) of kernel A (csrc/maf_state_grad.cu) and of maf_macro
+    (csrc/maf_macro.cu) for N individuals: G lanes a site (8, 16 or 32;
+    32 / G sites a warp), C cells a lane with their planes in registers.
+    The fewest lane slots G * C >= N with C <= STATE_GRAD_MAX_CELLS, the
+    smaller G on a tie; above 32 * STATE_GRAD_MAX_CELLS individuals (32,
+    0): the cells are read again and their planes recomputed at every
+    pass."""
+    return _segment_geometry(N, (8, 16, 32))
+
+
+def exact_geometry(N):
+    """(G, C) of maf_exact (csrc/maf_exact.cu) for N individuals: as
+    state_grad_geometry, over G of 1, 2, 4, 8, 16 or 32 lanes a site,
+    since the exact route serves fewer than 32 individuals (N = 20: G =
+    4, C = 5, 8 sites a warp)."""
+    return _segment_geometry(N, (1, 2, 4, 8, 16, 32))
 
 
 def _k_maf_state_grad(g0, g2, p, K0):
@@ -287,33 +311,19 @@ def _snap(p):
 
 
 def _exact_plain(g0, g2, p, snap, tally=None):
-    """Plain version of csrc/maf_exact.cu -> freq [bs, nb]. tally: as in
+    """Plain version of csrc/maf_exact.cu -> freq [bs, nb]: the Horner
+    planes of the snapped (snap=True) or raw posterior, then passes of
+    _sums_plain and _advance_plain until no site is active. tally: as in
     _state_grad_plain."""
     PLAIN_CALLS["maf_exact"] += 1
-    F = _snap(p) if snap else p
-    g1 = 1.0 - g0 - g2
-    two_m_F = 2.0 - F
-    tn1 = 2.0 - 2.0 * F
-    het = F == 1.0
-    floor = torch.full_like(F, _HET_FLOOR)
-    T = two_m_F.sum(-1)
+    q, T = _planes_plain(g0, g2, _snap(p) if snap else p)
     st = _init_state(g0.shape[:2], g0.device)
     k = 0
     while bool(st[3].any()):
         if tally is not None:
             tally.append(st[3].sum())
-        f = st[0][..., None]
-        pq = (1.0 - f) * f
-        a = pq * F
-        pr0 = (1.0 - f) * (1.0 - f) + a
-        pr1 = torch.where(het, floor, pq * tn1)
-        pr2 = f * f + a
-        n0, n1, n2 = g0 * pr0, g1 * pr1, g2 * pr2
-        inv = 1.0 / (n0 + n1 + n2)
-        pp1, pp2 = n1 * inv, n2 * inv
-        cn = (pp1 + pp2 * two_m_F).sum(-1)
-        cd = T + (pp1 * F).sum(-1)
-        st = _advance_plain(st, cn, cd, k + 1 <= ITER_MAX)
+        st = _advance_plain(st, *_sums_plain(q, T, st[0], False),
+                            k + 1 <= ITER_MAX)
         k += 1
     return st[0]
 
@@ -323,19 +333,21 @@ def _k_maf_exact(g0, g2, p, snap):
     applies check_interv's snap to the posterior as it is read.
 
     Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py:_run. Bound by
-    operations (up to ITER_MAX + 1 passes over cells read once); the
-    cells stay in registers and each site stops at its own convergence.
-    Reads float32 gl only (the JAX kernel reads float32 tiles)."""
+    instruction issue (up to ITER_MAX + 1 passes over cells read once): G
+    lanes a site with C cells each (exact_geometry), the cells' planes in
+    registers, fused cells; a warp stops when all its sites have. Reads
+    float32 gl only (the JAX kernel reads float32 tiles)."""
     if g0.dtype != _f32 or g2.dtype != _f32:
         raise TypeError(f"maf_exact reads float32 gl, got {g0.dtype} and "
                         f"{g2.dtype}")
     if not g0.is_cuda:
         return _exact_plain(g0, g2, p, snap)
     bs, nb, N, _ = _check_slabs("maf_exact", g0, g2, p)
+    G, C = exact_geometry(N)
     out = torch.empty((bs, nb), dtype=_f32, device=g0.device)
     rc = cuda_lib.load().ngsf_maf_exact(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), bs * nb,
-        N, int(bool(snap)), cuda_lib.stream())
+        N, int(bool(snap)), G, C, cuda_lib.stream())
     cuda_lib.check(rc, "maf_exact")
     LAUNCHES["maf_exact"] += 1
     return out
@@ -379,10 +391,11 @@ def _macro(name, g0, g2, p, K0, Ms):
         return _macro_rows_plain(g0, g2, p, K0, Ms, name=name)
     S, _, N, sfx = _check_slabs(name, g0[:, None], g2[:, None], p[:, None])
     Ms = tuple(int(m) for m in Ms)
+    G, C = state_grad_geometry(N)
     out = torch.empty((S,), dtype=_f32, device=g0.device)
     rc = getattr(cuda_lib.load(), "ngsf_maf_macro" + sfx)(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), out.data_ptr(), S, N,
-        int(K0), (ctypes.c_int * max(1, len(Ms)))(*Ms), len(Ms),
+        int(K0), (ctypes.c_int * max(1, len(Ms)))(*Ms), len(Ms), G, C,
         cuda_lib.stream())
     cuda_lib.check(rc, name + sfx)
     LAUNCHES[name + sfx] += 1
@@ -396,10 +409,13 @@ def _k_maf_macro(g0, g2, p, K0, Ms):
     M_r virtual passes, all in one launch.
 
     Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py:_run_macro.
-    Bound about equally by bytes (three [S, N] planes read once) and by
-    operations (the passes and gradient rounds over every cell); the
-    cells' planes and the per-site state stay in registers through the
-    schedule."""
+    Bound by operations (the passes and gradient rounds over every cell,
+    read once), on the card by their instruction issue and by the
+    windows' chain of dependent steps: the passes and gradient rounds in
+    kernel A's geometry and fused cells (state_grad_geometry), the cells'
+    planes in registers through the schedule; the windows once a site,
+    on one thread of the block, with the per-site state in shared memory
+    between rounds."""
     return _macro("maf_macro", g0, g2, p, K0, Ms)
 
 

@@ -78,8 +78,8 @@ _SIGNATURES = {
     "ngsf_maf_state_grad": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
-    "ngsf_maf_exact": [_P] * 4 + [_L, _I, _I, _P],
-    "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P, _I, _P],
+    "ngsf_maf_exact": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+    "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
 }
 # the bfloat16 gl exports take the same arguments as their float32 ones
 _SIGNATURES.update({
