@@ -6,10 +6,11 @@
 needs one CUDA device and nvcc. It
   1. requires the card and prints its name and power limit,
   2. builds the CUDA kernels from ngsf_hmm_tpu_torch/csrc (set-up time),
-     then compiles the transfer kernels, kernel A, maf_exact and maf_macro
-     alone to print their registers, spills, residency, waves and SASS
-     loops, and for the last two the SASS of a pass, a gradient round and
-     a window step and their issue floor (probe_build),
+     then compiles the transfer kernels, bw_sites, kernels A and B,
+     maf_exact and maf_macro alone to print their registers, spills,
+     residency, waves and SASS loops, for kernel B the SASS of a cell and
+     the cells' issue floor, and for the last two the SASS of a pass, a
+     gradient round and a window step and their issue floor (probe_build),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -20,18 +21,22 @@ needs one CUDA device and nvcc. It
      held at the ragged shape and at the restart path's shape; the row
      est_maf kernel (maf_macro) and the slab est_maf kernels at 33,333
      sites x 40, 32, 130 and 300 individuals (every lane geometry of
-     kernel A) and maf_macro at the LD path's shape, and maf_exact on the
+     kernels A and B) and 5,003 x 1,300 (kernel B unstaged), kernel B at
+     kernel A's freq equal to kernel A's gradient rows where both take
+     the same lanes a site, maf_macro at the LD path's shape, maf_exact on the
      row view at 20 individuals and at 33,333 sites x 1, 7, 12, 31, 40,
      100, 200 and 300 individuals (every lane geometry it can choose) on a
      posterior with cells within EPSILON of 0 and 1; est_maf_exact,
-     macro_slab and est_maf_rows against ops/maf.est_maf run in float64
-     at the exact, main and LD shapes (f64_anchor); the stream kernels
-     of all three sources at 3,001 sites x 33 and 34 columns (every copy
-     width of the transfer-and-tangent kernel, also on slabs that start
-     one element into their storage); wherever the transfer-and-tangent
-     kernel is held, also against the product rule carried in float64;
-     at the main and restart shapes that kernel split into its step from
-     registers and its loads alone (probe_transfer); at the LD path's
+     macro_slab, est_maf_slab (also on bfloat16 slabs) and est_maf_rows
+     against ops/maf.est_maf run in float64 at the exact, main and LD
+     shapes (f64_anchor); the stream kernels of all three sources at
+     3,001 sites x 33 and 34 columns (every copy width of the staged
+     kernels, the transfer-and-tangent kernel and bw_sites also on slabs
+     that start one element into their storage, kernel B on slabs one and
+     two elements in); wherever the transfer-and-tangent kernel is held,
+     also against the product rule carried in float64; at the main and
+     restart shapes that kernel and bw_sites each split into the step from
+     registers and the loads alone (probe_transfer); at the LD path's
      shape maf_macro split into its real passes, its gradient rounds and
      its windows; the bfloat16 gl exports
      ("_bf16") of the stream and slab est_maf kernels at the main path's
@@ -188,21 +193,24 @@ BF16_LL_RTOL = 5e-4
 # per-lane emissions 14 (the prior coefficients are per (site, block)),
 # the decay 3, the transition matrix 8, the primal product, maximum and
 # rescale 20, the tangents 57 (M scaled by the lagging scale 4, the
-# factors 13, the 16 fused updates 32, their 8 products 8).
+# factors 13, the 16 fused updates 32, their 8 products 8). The staged
+# backward stream (csrc/bw_sites.cu) the same per-lane emissions 14, decay
+# 3 and matrix 8, then its step 13 (the ratio's sum, clamp and division
+# 3, the 2-vector product 6, the two maxima 2, the rescale 2).
 FLOPS_CELL = {
     "block_transfer_grad": 14 + 3 + 8 + 20 + 57,
     "block_transfer": 37 + 21,
-    "bw_sites": 37 + 14,
+    "bw_sites": 14 + 3 + 8 + 13,
     "fw_post": 37 + 18,
     "block_transfer_grad_v1": 3 + 8 + 20 + 57,
     "block_transfer_v1": 12 + 21,
-    "bw_sites_v1": 12 + 14,
+    "bw_sites_v1": 3 + 8 + 13,
     "fw_post_v1": 12 + 18,
     # est_maf (csrc/maf_common.cuh): the planes of a cell, one pass over
-    # it and one gradient evaluation (maf_cell), and one step of the
-    # per-site window (maf_advance); the same in the fused form of the
-    # segment kernels maf_exact and maf_macro (maf_cell_fma, with f (1 -
-    # f) once a lane and pass; the window steps of an active site,
+    # it and one gradient evaluation in the unfused form of the plain
+    # version, and one step of the per-site window (maf_advance); the same
+    # in the fused form of the kernels (maf_cell_fma, with f (1 - f) once
+    # a lane and pass; the window steps of an active site,
     # maf_advance_active)
     "maf_planes": 24,
     "maf_pass": 16,
@@ -445,6 +453,18 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
                    gl_b + slab_b + 8 * sites * 4,
                    cells * (fc["maf_planes"] + fc["maf_grad"])
                    + total(tally) * N * fc["maf_pass"])
+        # ---- kernel B at kernel A's final freq: the same cells summed in
+        # the same order, so at the same lanes a site the same bits
+        G_b, _ = mk.sums_grad_geometry(N, g0.element_size())
+        b_at_a = mk._k_maf_sums_grad(g0, g2, p_slab, a_k[0].contiguous())
+        same = torch.equal(b_at_a, a_k[4:])
+        log(f"[{rec.label}] maf_sums_grad{sfx} (G = {G_b}) at kernel A's "
+            f"freq (G = {mk.state_grad_geometry(N)[0]}): torch.equal "
+            f"kernel A's gradient rows {same}")
+        if G_b == mk.state_grad_geometry(N)[0] and not same:
+            fail(f"[{rec.label}] maf_sums_grad{sfx} differs from kernel A's "
+                 "gradient rows at the same freq and lanes a site")
+        del b_at_a
         # ---- the rounds of one est_maf_slab call, each piece on the
         # kernels' own state: window, then kernel B at the advanced freq
         st, grads, passes = a_k[:4], a_k[4:], K0
@@ -462,7 +482,7 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
                     rec.record(
                         "maf_sums_grad" + sfx, err, ms, pms,
                         gl_b + slab_b + 5 * sites * 4,
-                        cells * (fc["maf_planes"] + fc["maf_grad"]))
+                        cells * (fc["maf_planes"] + fc["maf_grad_fma"]))
                 grads = b_k
             w_k, ms = timer(lambda: mk._k_maf_window(st, grads, passes, M_r))
             tally = []
@@ -536,6 +556,7 @@ def probe_fmad(torch, prep, p_slab, timer, label):
                 *ptr, a.data_ptr(), bs * nb, N, K0, G, C, cuda_lib.stream()),
             "maf_sums_grad": lambda: lib.ngsf_maf_sums_grad(
                 *ptr, a[0].data_ptr(), b.data_ptr(), bs * nb, N,
+                *map(int, mk.sums_grad_geometry(N, g0.element_size())),
                 cuda_lib.stream()),
             "maf_exact": lambda: lib.ngsf_maf_exact(
                 *ptr, e.data_ptr(), bs * nb, N, 1, *mk.exact_geometry(N),
@@ -610,9 +631,16 @@ def probe_chain(torch, timer, S, N, compat):
 #                  loads a lane in flight (chunk_load), summed so that no
 #                  load is dropped; the kernel's own staging alone is its
 #                  MEM instantiation.
+# The backward stream (csrc/bw_sites.cu) split the same way:
+#   bw_step_alone  its own step from registers (the prior coefficients once,
+#                  the ratio summed instead of written), lane per thread;
+#   the lane-order loads are memory_alone's (the same two slabs and
+#                  compacts); the kernel's own staging alone is its MEM
+#                  instantiation.
 # Built and timed by probe_transfer. Measurements only.
 TRANSFER_PROBE_CU = r"""
 #include "block_transfer_grad.cu"
+#include "bw_sites.cu"
 
 __device__ __forceinline__ void launder(float& v) { asm volatile("" : "+f"(v)); }
 
@@ -734,8 +762,52 @@ __global__ void __launch_bounds__(128) compute_alone_own(
 }
 
 template <class Src>
+__global__ void __launch_bounds__(128) bw_step_alone(
+        Src src, const float* Fp, const float* ap, const float* ends,
+        float* out, int bs, int nb, int N) {
+    const long long lanes = (long long)nb * N;
+    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= lanes) return;
+    const int j = (int)(lane / N);
+    const int n = (int)(lane - (long long)j * N);
+    const float F = Fp[n], a = ap[n];
+    float w0 = ends[lane], w1 = ends[lanes + lane], acc = 0.0f;
+    float l0[NGSF_UNROLL], l2[NGSF_UNROLL], ff[NGSF_UNROLL], dd[NGSF_UNROLL];
+    chunk_load(src, 0, bs, nb, j, lane, lanes, l0, l2, ff, dd);
+    Prior q[NGSF_UNROLL];
+#pragma unroll
+    for (int u = 0; u < NGSF_UNROLL; ++u) q[u] = site_prior(ff[u]);
+    for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
+#pragma unroll
+        for (int u = 0; u < NGSF_UNROLL; ++u) {
+            launder(l0[u]); launder(l2[u]); launder(dd[u]);
+            acc += w1 / fmaxf(w0 + w1, NGSF_TINY);
+            SiteK k;
+            if (Src::kFreq) {
+                launder(q[u].i0); launder(q[u].pr0); launder(q[u].pq2);
+                launder(q[u].pr2); launder(q[u].s10); launder(q[u].het);
+                launder(q[u].s12);
+                k = site_emit(l0[u], l2[u], q[u], dd[u], a);
+            } else {
+                k = site_em(l0[u], l2[u], dd[u], a);
+            }
+            float m00, m01, m10, m11;
+            site_matrix(k, F, m00, m01, m10, m11);
+            const float b0 = m00 * w0 + m01 * w1;
+            const float b1 = m10 * w0 + m11 * w1;
+            int ex = 0;
+            const float sc = pow2_scale(fmaxf(fmaxf(b0, b1), NGSF_TINY), ex);
+            w0 = b0 * sc;
+            w1 = b1 * sc;
+        }
+    }
+    out[lane] = acc + w0 + w1;
+}
+
+template <class Src>
 static int run_probe(int kind, Src src, const float* F, const float* al,
-                     float* out, int bs, int nb, int N, void* st) {
+                     const float* ends, float* out, int bs, int nb, int N,
+                     void* st) {
     const long long lanes = (long long)nb * N;
     const unsigned grid = (unsigned)((lanes + 127) / 128);
     cudaStream_t s = (cudaStream_t)st;
@@ -745,6 +817,9 @@ static int run_probe(int kind, Src src, const float* F, const float* al,
     // the kernel's own step, and its staged loads alone
     case 1: compute_alone_own<<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
     case 2: return launch<Src, true>(src, F, al, out, bs, nb, N, st);
+    // the backward stream's own step, and its staged loads alone
+    case 5: bw_step_alone<<<grid, 128, 0, s>>>(src, F, al, ends, out, bs, nb, N); break;
+    case 6: return launch<Src, true>(src, F, al, ends, out, bs, nb, N, st);
     default: return -1;
     }
     return (int)cudaGetLastError();
@@ -753,17 +828,18 @@ static int run_probe(int kind, Src src, const float* F, const float* al,
 // source: 0 float32 gl, 1 bfloat16 gl, 2 emission slabs (v1)
 extern "C" int transfer_probe(int kind, int source, const void* a,
                               const void* b, const float* fc, const float* dc,
-                              const float* F, const float* al, float* out,
-                              int bs, int nb, int N, void* st) {
+                              const float* F, const float* al,
+                              const float* ends, float* out, int bs, int nb,
+                              int N, void* st) {
     if (source == 0)
         return run_probe(kind, GlSource<float>{(const float*)a, (const float*)b, fc, dc},
-                         F, al, out, bs, nb, N, st);
+                         F, al, ends, out, bs, nb, N, st);
     if (source == 1)
         return run_probe(kind, GlSource<__nv_bfloat16>{(const __nv_bfloat16*)a,
                                                         (const __nv_bfloat16*)b, fc, dc},
-                         F, al, out, bs, nb, N, st);
+                         F, al, ends, out, bs, nb, N, st);
     return run_probe(kind, EmSource{(const float*)a, (const float*)b, nullptr, dc},
-                     F, al, out, bs, nb, N, st);
+                     F, al, ends, out, bs, nb, N, st);
 }
 """
 
@@ -845,8 +921,9 @@ def _sass_loops(sass):
     return out
 
 
-PROBE_SOURCES = ("block_transfer_grad.cu", "block_transfer.cu",
-                 "maf_state_grad.cu", "maf_exact.cu", "maf_macro.cu")
+PROBE_SOURCES = ("block_transfer_grad.cu", "bw_sites.cu", "block_transfer.cu",
+                 "maf_state_grad.cu", "maf_sums_grad.cu", "maf_exact.cu",
+                 "maf_macro.cu")
 # probe_build prints these two for the instantiation each shape uses only
 MAF_PROBE_SOURCES = ("maf_exact.cu", "maf_macro.cu")
 
@@ -873,6 +950,84 @@ def _maf_geometry(kernel, args, N):
     return (1, 1) if ints == [cpl] else None
 
 
+def _nested(a, b):
+    """Whether loop b (instructions, opcodes, first, last) lies in loop a."""
+    return a[2] <= b[2] and b[3] <= a[3] and a != b
+
+
+def _flat(lp, lps):
+    """Loop lp's instructions outside the loops nested in it."""
+    return sum(1 for q in range(lp[2], lp[3] + 1) if not any(
+        o[2] <= q <= o[3] for o in lps if _nested(lp, o)))
+
+
+def sums_grad_probe_line(nice, props, loops, shapes):
+    """probe_build's line for a kernel B instantiation at each shape that
+    runs it (sums_grad_geometry; aligned slabs: 16-byte copies):
+    registers, spills, shared memory (the static, and the ring of
+    tiles), resident CTAs, tiles a CTA, the SASS of a cell (the largest
+    loop inside the tile loop, the unrolled cell loop of the rcp_fast
+    path, over its 4 cells) and of the tile loop outside its inner loops
+    (the copies, the peeled cells of a lane's last round, the exact
+    reciprocal's path, the sums: not all run on every tile), and the
+    issue floor of the cells alone: ceil(N / G) cells a lane for every
+    warp of every tile over 4 warp instructions a cycle on 132 SMs at the
+    highest SM clock."""
+    import re
+
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    m = re.search(r"k_maf_sums_grad<\(int\)(\d+), \(int\)(\d+), (\w+)>",
+                  nice)
+    if not loops:
+        return
+    n_ins, _, _, lps = loops
+    if not m:  # a tree whose kernel B gives a site one warp, CPL cells a lane
+        m = re.search(r"k_maf_sums_grad<\(int\)(\d+), (\w+)>", nice)
+        for label, sh in shapes.items():
+            cpl = 1 if sh["N"] <= 32 else 2 if sh["N"] <= 64 else (
+                4 if sh["N"] <= 128 else 0)
+            if not m or int(m.group(1)) != cpl or (
+                    "bfloat16" in m.group(2)) != sh.get("bf16", False):
+                continue
+            log(f"[probe build] {nice[:70]} at {label} ({sh['sites']} x "
+                f"{sh['N']}): {props['regs']} registers, spills "
+                f"{props.get('spill', (0, 0))}; "
+                f"{resident_ctas(props['regs'], 256, props['smem'])} CTAs "
+                f"of 256 an SM; {n_ins} SASS instructions for one site a "
+                f"warp, loops {[lp[0] for lp in lps]}")
+        return
+    if not lps:
+        return
+    G, V, esz = int(m.group(1)), int(m.group(2)), (
+        2 if "bfloat16" in m.group(3) else 4)
+    tile = max(lps, key=lambda lp: lp[0])
+    inner = [lp for lp in lps if _nested(tile, lp)]
+    cell = max(inner, key=lambda lp: lp[0]) if inner else None
+    per_cell = _flat(cell, lps) / 4 if cell else 0.0
+    for label, sh in shapes.items():
+        if sh.get("bf16", False) != (esz == 2):
+            continue
+        N, sites = sh["N"], sh["sites"]
+        if mk.sums_grad_geometry(N, esz) != (G, V != 0) or V not in (0, 16):
+            continue
+        ts = mk.SUMS_GRAD_THREADS // G
+        ring = mk.sums_grad_ring_bytes(G, N, esz) if V else 0
+        ctas = resident_ctas(props["regs"], 256, props["smem"] + ring)
+        ntiles = -(-sites // ts)
+        rate = 4 * SM_COUNT * SM_CLOCK_MHZ * 1e3  # warp instructions a ms
+        floor = ntiles * 8 * -(-N // G) * per_cell / rate
+        log(f"[probe build] {nice[:70]} at {label} ({sites} x {N}): "
+            f"{props['regs']} registers, spills "
+            f"{props.get('spill', (0, 0))}, smem {props['smem']} + ring "
+            f"{ring} B; {ctas} CTAs of 256 an SM "
+            f"({ntiles / (SM_COUNT * max(ctas, 1)):.1f} tiles of {ts} sites "
+            f"a CTA); {n_ins} SASS instructions; cell loop "
+            f"{cell[0] if cell else 0} SASS for 4 cells ({per_cell:.1f} a "
+            f"cell), tile loop {_flat(tile, lps)} outside its inner loops; "
+            f"issue floor of the cells {floor:.3f} ms")
+
+
 def maf_probe_line(nice, props, loops, shapes):
     """probe_build's line for a maf_exact or maf_macro instantiation at
     each shape that runs it: registers, spills, resident CTAs, waves, the
@@ -890,10 +1045,9 @@ def maf_probe_line(nice, props, loops, shapes):
         return
     kernel, args = m.group(1), m.group(2).split(",")
     n_ins, _, _, lps = loops
-    nested = lambda a, b: a[2] <= b[2] and b[3] <= a[3] and a != b
+    nested = _nested
     top = [lp for lp in lps if not any(nested(o, lp) for o in lps)]
-    flat = lambda lp: sum(1 for q in range(lp[2], lp[3] + 1) if not any(
-        o[2] <= q <= o[3] for o in lps if nested(lp, o)))
+    flat = lambda lp: _flat(lp, lps)
     for label, sh in shapes.items():
         if (kernel == "exact") != ("passes" in sh) or (
                 "bfloat16" in nice) != sh.get("bf16", False):
@@ -1009,12 +1163,16 @@ def probe_build(lanes_by_source, csrc=None):
             if src in MAF_PROBE_SOURCES:
                 maf_probe_line(nice, p, loops.get(name), shapes)
                 continue
+            if src == "maf_sums_grad.cu":
+                sums_grad_probe_line(nice, p, loops.get(name), shapes)
+                continue
             n_ins, lp, flat, _ = loops.get(name, (0, [], 0, []))
             threads = 256 if "maf" in src else 128
-            # the staged transfer kernel's dynamic shared memory: three
+            # the staged stream kernels' dynamic shared memory: three
             # tiles of 8 sites x 128 lanes of both slabs, 3 blocks' compacts
             smem = p["smem"]
-            staged = "k_block_transfer_grad" in nice and "(bool)" in nice
+            staged = ("k_block_transfer_grad" in nice
+                      or "k_bw_sites" in nice) and "(bool)" in nice
             if staged:
                 esz = 2 if "bfloat16" in nice else 4
                 smem += 3 * 2 * 8 * 128 * esz + 4 * 3 * 2 * 3 * 8 + (
@@ -1029,7 +1187,7 @@ def probe_build(lanes_by_source, csrc=None):
                                                    key=lambda x: -x[1])[:8])
                 + "]" for n, ops in lp[:3] if n >= 8)
             floor = ""
-            if "k_block_transfer" in nice and flat:
+            if ("k_block_transfer" in nice or "k_bw_sites" in nice) and flat:
                 # the loop body holds NGSF_TG_D = 8 sites (the staged
                 # kernel) or NGSF_UNROLL = 4 (a lane-per-thread kernel)
                 per = flat / (8 if staged else 4)
@@ -1050,9 +1208,10 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
     """The transfer-and-tangent kernel beside its two halves
     (TRANSFER_PROBE_CU) on the same slabs, in turns: the kernel, the step
     from registers (the product-rule step and the kernel's own), the
-    loads alone (in the lane order, and the kernel's own staging);
-    Prints each time and the loads' rate. A measurement only: nothing is
-    gated."""
+    loads alone (in the lane order, and the kernel's own staging); then
+    the backward stream (bw_sites, from unit end vectors) beside its own
+    step from registers and the same loads alone. Prints each time and
+    the loads' rate. A measurement only: nothing is gated."""
     import ctypes
 
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
@@ -1068,7 +1227,7 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
                         str(so)], check=True, capture_output=True)
         lib = ctypes.CDLL(str(so))
         lib.transfer_probe.argtypes = [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         _transfer_lib.append(lib)
     lib = _transfer_lib[0]
     a, b = sl[0], sl[1]
@@ -1077,6 +1236,7 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
     bs, nb, N = a.shape
     source = 2 if v1 else (1 if a.dtype == torch.bfloat16 else 0)
     out = torch.empty(13 * nb * N, device=a.device)  # a kernel's output
+    ends = torch.ones((2, nb, N), device=a.device)
     nbytes = 2 * a.numel() * a.element_size() + dc.numel() * 4 * (
         1 if v1 else 2)
 
@@ -1084,26 +1244,37 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
         return lambda: cuda_lib.check(lib.transfer_probe(
             kind, source, a.data_ptr(), b.data_ptr(),
             0 if fc is None else fc.data_ptr(), dc.data_ptr(),
-            F_t.data_ptr(), a_t.data_ptr(), out.data_ptr(), bs, nb, N,
-            cuda_lib.stream()), f"transfer_probe {kind}")
+            F_t.data_ptr(), a_t.data_ptr(), ends.data_ptr(), out.data_ptr(),
+            bs, nb, N, cuda_lib.stream()), f"transfer_probe {kind}")
 
-    kern = (lambda: h1._k_block_transfer_grad_v1(*sl, F_t, a_t)) if v1 else (
-        lambda: hk._k_block_transfer_grad(*sl, F_t, a_t))
-    runs = {"kernel": kern, "step from registers (product rule)": probe(0),
-            "loads alone, lane order, 4 sites in flight": probe(4),
-            "step from registers (the kernel's own)": probe(1),
-            "loads alone, the kernel's staging": probe(2)}
-    ms = {k: [] for k in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for k in order:
-            ms[k].append(timer(runs[k])[1])
-    parts = []
-    for k, ts in ms.items():
-        t = min(ts)
-        rate = (f", {nbytes / t / 1e9:.3f} TB/s" if "loads" in k else "")
-        parts.append(f"{k} {t:.3f} ms{rate}")
-    log(f"[{label}] transfer-and-tangent split (lanes {nb * N}, bs {bs}): "
-        + "; ".join(parts))
+    def split(name, runs):
+        ms = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for k in order:
+                ms[k].append(timer(runs[k])[1])
+        parts = []
+        for k, ts in ms.items():
+            t = min(ts)
+            rate = (f", {nbytes / t / 1e9:.3f} TB/s" if "loads" in k else "")
+            parts.append(f"{k} {t:.3f} ms{rate}")
+        log(f"[{label}] {name} split (lanes {nb * N}, bs {bs}): "
+            + "; ".join(parts))
+
+    mod, sfx = (h1, "_v1") if v1 else (hk, "")
+    grad = getattr(mod, "_k_block_transfer_grad" + sfx)
+    bw = getattr(mod, "_k_bw_sites" + sfx)
+    lane_order = "loads alone, lane order, 4 sites in flight"
+    split("transfer-and-tangent", {
+        "kernel": lambda: grad(*sl, F_t, a_t),
+        "step from registers (product rule)": probe(0),
+        lane_order: probe(4),
+        "step from registers (the kernel's own)": probe(1),
+        "loads alone, the kernel's staging": probe(2)})
+    split("backward stream (bw_sites)", {
+        "kernel": lambda: bw(*sl, F_t, a_t, ends),
+        "step from registers (the kernel's own)": probe(5),
+        lane_order: probe(4),
+        "loads alone, the kernel's staging": probe(6)})
 
 
 def probe_lanes(S, N, S_c, R=20):
@@ -1124,9 +1295,13 @@ def probe_lanes(S, N, S_c, R=20):
               "restart": (nb_r * R * N, bs_r * nb_r * R * N)}
     K0, M = macro_schedule(N)
     macro = dict(sites=S, N=N, K0=K0, Ms=macro_rounds(K0, M))
+    sums = dict(sites=bs * nb, N=N)
     return {"block_transfer_grad.cu": stream, "block_transfer.cu": stream,
+            "bw_sites.cu": stream,
             "maf_state_grad.cu": {
                 "main": (bs * nb * state_grad_geometry(N)[0], bs * nb * N)},
+            "maf_sums_grad.cu": {"main": sums,
+                                 "main bf16": dict(sums, bf16=True)},
             "maf_exact.cu": {"exact": dict(sites=S_c, N=20,
                                            passes=ITER_MAX + 1)},
             "maf_macro.cu": {"main": macro,
@@ -1243,7 +1418,7 @@ ANCHORS = {}
 MAF_F64_STEP = 1e-6
 
 
-def f64_anchor(torch, label, name, freq, g0, g2, p, macro):
+def f64_anchor(torch, label, name, freq, g0, g2, p, macro, want=None):
     """The distance of an est_maf function's freq [S] from ops/maf.est_maf
     (linear, exact or macro=True) run in float64 on float64 copies of the
     linear gl planes g0 / g2 [S, N] and the posterior p [S, N] it read
@@ -1252,14 +1427,17 @@ def f64_anchor(torch, label, name, freq, g0, g2, p, macro):
     MAF_F64_STEP (stopped at another pass than float64). Logs and keeps
     them in ANCHORS; fails if a freq is further than MAF_FREQ_ATOL (a site
     that stops at another pass moves by one damped step, less than that).
-    The share is information: it depends on the data."""
+    The share is information: it depends on the data. want: the float64
+    freq of an earlier call on the same inputs. Returns the float64
+    freq."""
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
 
     d64 = torch.float64
-    g0d, g2d = g0.to(d64), g2.to(d64)
-    want = tmaf.est_maf(torch.stack((g0d, 1.0 - g0d - g2d, g2d), -1),
-                        p.to(d64), linear=True, macro=macro)
-    del g0d, g2d
+    if want is None:
+        g0d, g2d = g0.to(d64), g2.to(d64)
+        want = tmaf.est_maf(torch.stack((g0d, 1.0 - g0d - g2d, g2d), -1),
+                            p.to(d64), linear=True, macro=macro)
+        del g0d, g2d
     d = (freq.to(d64) - want).abs()
     r = dict(max=float(d.max()), mean=float(d.mean()),
              share=float((d > MAF_F64_STEP).double().mean()))
@@ -1270,6 +1448,7 @@ def f64_anchor(torch, label, name, freq, g0, g2, p, macro):
         f"{r['share']:.4g}")
     if r["max"] > MAF_FREQ_ATOL:
         fail(f"[{label}] {name}: freq {r['max']} from float64")
+    return want
 
 
 def anchor_exact(torch, label, gl_t, prep, p_sites, p_slab):
@@ -1284,14 +1463,24 @@ def anchor_exact(torch, label, gl_t, prep, p_sites, p_slab):
 
 
 def anchor_macro(torch, rows, p_m, prep, p_raw, slab_raw):
-    """macro_slab (kernel 9 on main's float32 slabs and raw posterior slab)
-    and est_maf_rows (maf_macro on the LD path's rows and snapped
-    posterior) against float64 at the main path's shape."""
+    """macro_slab (kernel 9) and est_maf_slab (kernel A, windows, kernel B)
+    on main's float32 slabs and raw posterior slab, est_maf_slab also on
+    bfloat16 slabs of the same gl (against float64 on the gl as those
+    slabs hold it), and est_maf_rows (maf_macro on the LD path's rows and
+    snapped posterior) against float64 at the main path's shape."""
     from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
 
     g0, g2 = rows
-    f64_anchor(torch, "main shape", "macro_slab", mk.macro_slab(
+    want = f64_anchor(torch, "main shape", "macro_slab", mk.macro_slab(
         prep, slab_raw), g0, g2, p_raw, True)
+    f64_anchor(torch, "main shape", "est_maf_slab", mk.est_maf_slab(
+        prep, slab_raw), g0, g2, p_raw, True, want=want)
+    del want
+    bf = torch.bfloat16
+    prep_b = dict(prep, g0=prep["g0"].to(bf), g2=prep["g2"].to(bf))
+    f64_anchor(torch, "main shape bf16", "est_maf_slab", mk.est_maf_slab(
+        prep_b, slab_raw), g0.to(bf).float(), g2.to(bf).float(), p_raw, True)
+    del prep_b
     f64_anchor(torch, "ld shape", "est_maf_rows", mk.est_maf_rows(g0, g2, p_m),
                g0, g2, p_m, True)
 
@@ -1301,9 +1490,10 @@ def check_maf_shapes(torch, dev, results, seed, S_m, Ns=(40, 32, 130, 300)):
     against their plain versions at S_m sites: a ragged site count at 40
     individuals, the schedule's edge (32), 130 and 300 (kernel A's G = 8,
     16 and 32 lanes a site; above 128 maf_macro recomputes its planes
-    from cache, above 256 kernel A does); est_maf_slab's pieces and the
-    one-launch slab kernel on float32 and bfloat16 slabs of the same gl.
-    The LD path's shape is checked in main."""
+    from cache, above 256 kernel A does; kernel B's G = 8, 16 and 32, its
+    tiles staged); est_maf_slab's pieces and the one-launch slab kernel on
+    float32 and bfloat16 slabs of the same gl. The LD path's shape is
+    checked in main."""
     for N_m in Ns:
         gl_m, dist_m, freq_m, F0_m, a0_m = simulate(S_m, N_m, seed + N_m)
         rows, p_m, prep_m, slab_m = maf_rows_inputs(
@@ -1672,8 +1862,9 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
                       reps=1, warm=0)
     finite("bw_sites" + sfx, bw_k, bw_p)
     err = float((bw_k - bw_p).abs().max())
-    if err > ATOL:
-        fail(f"bw_sites{sfx} [{label}]: max diff {err} > {ATOL}")
+    if err > ATOL or (dev.type == "cuda" and not torch.equal(bw_k, bw_p)):
+        fail(f"bw_sites{sfx} [{label}]: not bit-equal to its plain version "
+             f"(max diff {err})")
     record("bw_sites" + sfx, err, ms, pms, src + slab + 2 * nb * N * 4,
            flops("bw_sites"))
     del bw_p
@@ -1706,19 +1897,44 @@ def offset_view(torch, t, k=1):
     return v
 
 
-def check_offset_slabs(torch, label, kern, sl, F_t, a_t):
-    """The transfer-and-tangent kernel on slabs that start one element
-    into their storage (4-byte aligned float32, 2-byte aligned bfloat16
-    base addresses: the copy width must follow them, not the row length
-    alone) equals its output on the aligned slabs bit for bit."""
-    want = kern(*sl, F_t, a_t)
-    got = kern(offset_view(torch, sl[0]), offset_view(torch, sl[1]),
-               *sl[2:], F_t, a_t)
-    if not torch.equal(got, want):
-        fail(f"[{label}] the transfer-and-tangent kernel on offset slabs "
-             "differs from its output on aligned ones")
-    log(f"[{label}] transfer-and-tangent kernel on slabs one element into "
-        "their storage torch.equal the aligned ones: True")
+def check_offset_slabs(torch, label, kerns, sl, F_t, a_t):
+    """The staged stream kernels (kerns: the transfer-and-tangent kernel
+    and bw_sites, the latter from unit end vectors) on slabs that start
+    one element into their storage (4-byte aligned float32, 2-byte
+    aligned bfloat16 base addresses: the copy width must follow them,
+    not the row length alone) equal their outputs on the aligned slabs
+    bit for bit."""
+    bs, nb, N = sl[0].shape
+    off = (offset_view(torch, sl[0]), offset_view(torch, sl[1])) + sl[2:]
+    ends = torch.ones((2, nb, N), device=sl[0].device)
+    for name, kern in zip(("transfer-and-tangent kernel", "bw_sites"),
+                          kerns):
+        extra = (ends,) if name == "bw_sites" else ()
+        if not torch.equal(kern(*off, F_t, a_t, *extra),
+                           kern(*sl, F_t, a_t, *extra)):
+            fail(f"[{label}] the {name} on offset slabs differs from its "
+                 "output on aligned ones")
+        log(f"[{label}] {name} on slabs one element into their storage "
+            "torch.equal the aligned ones: True")
+
+
+def check_offset_sums_grad(torch, label, g0, g2, p, fq):
+    """Kernel B on slabs that start one and two elements into their
+    storage (its tiles then copied 4 or 8 bytes at a time on float32 gl,
+    2 or 4 on bfloat16) equals its output on the aligned slabs (16-byte
+    copies) bit for bit."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+
+    want = mk._k_maf_sums_grad(g0, g2, p, fq)
+    for k in (1, 2):
+        got = mk._k_maf_sums_grad(offset_view(torch, g0, k),
+                                  offset_view(torch, g2, k),
+                                  offset_view(torch, p, k), fq)
+        if not torch.equal(got, want):
+            fail(f"[{label}] maf_sums_grad on slabs {k} elements into their "
+                 "storage differs from its output on aligned ones")
+    log(f"[{label}] maf_sums_grad on slabs 1 and 2 elements into their "
+        "storage torch.equal the aligned ones: True")
 
 
 def check_copy_widths(torch, dev, seed, S=3001):
@@ -1728,9 +1944,10 @@ def check_copy_widths(torch, dev, seed, S=3001):
     main and restart shapes; 8 and 4 bytes here for float32 rows, 4 and 2
     for bfloat16 ones), with a partial last tile. Each kernel against its
     plain version (check_streams, the primal rows' bit identity included);
-    then the transfer-and-tangent kernel on slabs whose base addresses are
-    not aligned to the row's width (check_offset_slabs). Nothing is
-    recorded."""
+    then the transfer-and-tangent kernel and bw_sites on slabs whose base
+    addresses are not aligned to the row's width (check_offset_slabs), and
+    kernel B on such slabs and the posterior slab (check_offset_sums_grad).
+    Nothing is recorded."""
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
     from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -1749,17 +1966,19 @@ def check_copy_widths(torch, dev, seed, S=3001):
             label = f"copy widths N={N} lanes={prep['nb'] * N} {dt}"
             sl = (prep["g0"], prep["g2"], hk.freq_compact(freq_t, prep),
                   prep["dc"])
-            check_streams(torch, dev, Recorder(torch, label, {}), timer,
-                          label, sl, F_t, a_t, False)
-            check_offset_slabs(torch, label, hk._k_block_transfer_grad, sl,
-                               F_t, a_t)
+            po = check_streams(torch, dev, Recorder(torch, label, {}), timer,
+                               label, sl, F_t, a_t, False)
+            check_offset_slabs(torch, label, (hk._k_block_transfer_grad,
+                                              hk._k_bw_sites), sl, F_t, a_t)
+            check_offset_sums_grad(torch, label, prep["g0"], prep["g2"], po,
+                                   sl[2].clamp(max=0.5))
         prep = h1.prepare_inputs(calc_emission(gl_t, freq_t[:, None]), dist_t)
         label = f"copy widths N={N} v1"
         sl = (prep["e0"], prep["e1"], prep["dc"])
         check_streams(torch, dev, Recorder(torch, label, {}), timer, label,
                       sl, F_t, a_t, True)
-        check_offset_slabs(torch, label, h1._k_block_transfer_grad_v1, sl,
-                           F_t, a_t)
+        check_offset_slabs(torch, label, (h1._k_block_transfer_grad_v1,
+                                          h1._k_bw_sites_v1), sl, F_t, a_t)
 
 
 def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results,
@@ -2269,10 +2488,10 @@ def against_parent(path, label="main"):
 
 
 def run_maf_anchor(torch, dev, args):
-    """--maf-anchor OUT: the float64 anchor of the one-launch est_maf
-    functions (est_maf_exact at the exact path's shape, macro_slab at the
-    main path's, est_maf_rows on the LD path's rows), then the exact and
-    ld paths, on this tree's package or on --tree's; writes the anchor's
+    """--maf-anchor OUT: the float64 anchor of the est_maf functions
+    (est_maf_exact at the exact path's shape, macro_slab and est_maf_slab
+    at the main path's, est_maf_slab on bfloat16 slabs, est_maf_rows on
+    the LD path's rows), then the exact and ld paths, on this tree's package or on --tree's; writes the anchor's
     readings (anchor.json) and the two paths' final freqs
     ({exact,ld}_freq.npy) under OUT for --against-maf. Prints no result
     and returns 4."""
@@ -2805,6 +3024,10 @@ def main():
     t0 = time.perf_counter()
     check_maf_shapes(torch, dev, results, args.seed,
                      333 if args.rehearse else 33_333)
+    # past 806 individuals on float32 gl and 1,210 on bfloat16 kernel B
+    # reads its cells unstaged (sums_grad_geometry)
+    check_maf_shapes(torch, dev, results, args.seed,
+                     101 if args.rehearse else 5_003, Ns=(1_300,))
     log(f"[macro shapes] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -13,7 +13,8 @@
 // slabs' loads exposed, and the product-rule tangents cost about twice
 // the instructions of the primal step. This design:
 //   * stages tiles of NGSF_TG_D sites x the CTA's 128 lanes of both slabs
-//     in shared memory with cp.async, NGSF_TG_STAGES tiles deep, so the
+//     in shared memory with cp.async, NGSF_TG_STAGES tiles deep
+//     (stream_tiles.cuh, shared with bw_sites.cu), so the
 //     loads of the next tiles run while the chain works on this one; the
 //     per-site freq / dist compacts of the CTA's blocks ride along, and
 //     the prior coefficients of site_load are computed once per (site,
@@ -30,13 +31,8 @@
 // same tangent order and rounds each multiply-add once, as __fmaf_rn does
 // (_fma, through float64), so it gives the kernel's bits; chip_smoke.py
 // also holds the tangents to the product rule carried in float64.
-#include <cstdint>
+#include "stream_tiles.cuh"
 
-#include "hmm_common.cuh"
-
-#define NGSF_TG_THREADS 128  // lanes (threads) a CTA of the exports
-#define NGSF_TG_D 8          // sites a tile
-#define NGSF_TG_STAGES 3     // tiles in flight
 #define NGSF_TG_SM_THREADS 1024  // threads an SM at 64 registers a thread
 
 // The transfer product of one lane with its (F, alpha) tangents. The
@@ -100,59 +96,6 @@ struct GradLane {
     }
 };
 
-// cp.async of V bytes (16, 8 or 4) from global to shared memory;
-// src_bytes 0 fills the V bytes with zeros and reads nothing.
-template <int V>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    if constexpr (V == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                     "l"(src), "r"(src_bytes));
-    else if constexpr (V == 8)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                     "l"(src), "r"(src_bytes));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                     "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <class T>
-__device__ __forceinline__ T elem_from_float(float v) {
-    return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 elem_from_float<__nv_bfloat16>(
-    float v) {
-    return __float2bfloat16(v);
-}
-
-// Shared memory of one CTA, in bytes, for nbx blocks a CTA at most: the
-// slab tiles [S][2 D][NGSF_TG_THREADS], the compacts' entries [S][2][nbx][D]
-// (freq, dist), the prior coefficients [nbx][D][2] (float4 each).
-template <class Src>
-__host__ __device__ constexpr int tg_tile_bytes() {
-    return NGSF_TG_STAGES * 2 * NGSF_TG_D * NGSF_TG_THREADS *
-           (int)sizeof(typename Src::Elem);
-}
-__host__ __device__ inline int tg_raw_floats(int nbx) {
-    return NGSF_TG_STAGES * 2 * nbx * NGSF_TG_D;  // a multiple of 16
-}
-template <class Src>
-__host__ __device__ inline int tg_smem_bytes(int nbx) {
-    return tg_tile_bytes<Src>() + 4 * tg_raw_floats(nbx) +
-           (Src::kFreq ? nbx * NGSF_TG_D * 32 : 0);
-}
-
 // NGSF_TG_THREADS lanes a CTA; V bytes a copy of the slab rows (16, 8 or
 // 4 by cp.async, the widest that keeps every row aligned; 2: one bfloat16
 // element by a plain copy, for rows that are not 4-byte aligned). MEM:
@@ -167,101 +110,23 @@ __global__ void __launch_bounds__(NGSF_TG_THREADS,
                           int nbx) {
     using T = typename Src::Elem;
     constexpr int D = NGSF_TG_D, S = NGSF_TG_STAGES, W = NGSF_TG_THREADS;
-    constexpr int ESZ = (int)sizeof(T);
-    constexpr int CPR = W * ESZ / V;      // copies a slab row
-    constexpr int RS = W / CPR;           // rows between a thread's copies
-    constexpr int NCH = 2 * D / RS;       // copies a thread a tile
-    static_assert(V >= ESZ && W % CPR == 0 && (2 * D) % RS == 0, "tile");
     extern __shared__ __align__(16) unsigned char smem[];
-    T* tiles = reinterpret_cast<T*>(smem);
-    float* raw = reinterpret_cast<float*>(smem + tg_tile_bytes<Src>());
-    float4* coef = reinterpret_cast<float4*>(raw + tg_raw_floats(nbx));
 
     const int tid = threadIdx.x;
     const long long lanes = (long long)nb * N;
     const long long l0 = (long long)blockIdx.x * W;
     const long long lane = l0 + tid;
     const long long lc = lane < lanes ? lane : lanes - 1;
-    const int j0 = (int)(l0 / N);
     const int j = (int)(lc / N);
     const int n = (int)(lc - (long long)j * N);
-    const int jl = j - j0;
-    const int nblk = min(nbx, nb - j0);
     const float F = Fp[n];
     const float a = ap[n];
     const int rb = (bs + NGSF_UNROLL - 1) / NGSF_UNROLL * NGSF_UNROLL;
     const int ntiles = (rb + D - 1) / D;
-    // this thread's copies: chunk k of rows row0 + i RS (i < NCH) of a
-    // tile, row = h D + u; row0 < RS and RS divides D, so h and
-    // u - row0 are compile-time in i. A chunk past the lanes (the last
-    // CTA) is zero-filled from a valid address.
-    const int k = tid % CPR, row0 = tid / CPR;
-    const bool kin = (long long)k * V < (lanes - l0) * ESZ;
-    const long long rstride = kin ? lanes * ESZ : 0;  // bytes a site
-    const unsigned char* valid = reinterpret_cast<const unsigned char*>(src.a);
-    const unsigned char* sbase0 =  // at the next tile to issue
-        kin ? reinterpret_cast<const unsigned char*>(src.a + l0) + k * V +
-                  row0 * rstride
-            : valid;
-    const unsigned char* sbase1 =
-        kin ? reinterpret_cast<const unsigned char*>(src.b + l0) + k * V +
-                  row0 * rstride
-            : valid;
-    unsigned char* dbase = reinterpret_cast<unsigned char*>(tiles) +
-                           row0 * W * ESZ + k * V;
-
-    // Stage tile t (sites t D ..) into stage t % S: the slab rows, and the
-    // compacts' entries of the CTA's blocks by 4-byte cp.async; rows at or
-    // past bs get the pad values (exact no-ops).
-    auto issue = [&](int t) {
-        if (t < ntiles) {
-            const int st = t % S, r0 = t * D;
-            unsigned char* dst0 = dbase + st * 2 * D * W * ESZ;
-            auto copy = [&](int i, bool in_bs) {  // copy i of this tile
-                const int h = i * RS / D, du = i * RS % D;  // compile-time
-                unsigned char* dst = dst0 + (i * RS) * W * ESZ;
-                const unsigned char* sp = (h ? sbase1 : sbase0) + du * rstride;
-                if (in_bs) {
-                    if constexpr (V >= 4) {
-                        cp_async<V>(dst, sp, kin ? V : 0);
-                    } else {
-                        *reinterpret_cast<T*>(dst) =
-                            kin ? *reinterpret_cast<const T*>(sp)
-                                : elem_from_float<T>(0.0f);
-                    }
-                } else {
-#pragma unroll
-                    for (int e = 0; e < V / ESZ; ++e)
-                        reinterpret_cast<T*>(dst)[e] =
-                            elem_from_float<T>(Src::kPad);
-                }
-            };
-            if (r0 + D <= bs) {  // every row of the tile inside the block
-#pragma unroll
-                for (int i = 0; i < NCH; ++i) copy(i, true);
-            } else {
-#pragma unroll
-                for (int i = 0; i < NCH; ++i)
-                    copy(i, r0 + row0 + i * RS % D < bs);
-            }
-            sbase0 += D * rstride;  // tiles are issued in order
-            sbase1 += D * rstride;
-            float* rw = raw + st * 2 * nbx * D;
-            for (int c = tid; c < D * nblk; c += W) {
-                const int u = c % D, b = c / D, r = r0 + u;
-                const long long o = (long long)r * nb + j0 + b;
-                if (Src::kFreq) {
-                    if (r < bs)
-                        cp_async<4>(rw + c, src.fc + o, 4);
-                    else
-                        rw[c] = 2.0f;
-                }
-                if (r < bs)
-                    cp_async<4>(rw + nbx * D + c, src.dc + o, 4);
-                else
-                    rw[nbx * D + c] = 0.0f;
-            }
-        }
+    StreamTiles<Src, V, 1> tl(src, smem, l0, lanes, tid, bs, nb, N, nbx, 0);
+    const int jl = j - tl.j0;
+    auto issue = [&](int t) {  // tile t: sites t D ..
+        if (t < ntiles) tl.issue(t % S, t * D);
         cp_async_commit();
     };
 
@@ -274,20 +139,11 @@ __global__ void __launch_bounds__(NGSF_TG_THREADS,
         __syncthreads();  // tile t landed; tile t - 1 consumed by all
         issue(t + S - 1);
         const int st = t % S;
-        const T* g0t = tiles + st * 2 * D * W + tid;
+        const T* g0t = tl.tiles + st * 2 * D * W + tid;
         const T* g2t = g0t + D * W;
-        const float* rw = raw + st * 2 * nbx * D;
-        const float* dq = rw + (nbx + jl) * D;  // this lane's block's dist
-        if (Src::kFreq && !MEM) {
-            for (int e = tid; e < D * nblk; e += W) {
-                const Prior q = site_prior(rw[e]);
-                coef[2 * e] = make_float4(q.i0, q.pr0, q.pq2, q.pr2);
-                coef[2 * e + 1] =
-                    make_float4(q.s10, q.het, q.s12, rw[nbx * D + e]);
-            }
-            __syncthreads();  // the tile's coefficients
-        }
-        const float4* cq = coef + 2 * D * jl;  // this lane's block's
+        const float* dq = tl.compacts(st) + (nbx + jl) * D;  // lane's dist
+        if (Src::kFreq && !MEM) tl.priors(st);  // the tile's coefficients
+        const float4* cq = tl.coef + 2 * D * jl;  // this lane's block's
         auto step = [&](int u) {
             const float g0 = to_float(g0t[u * W]);
             const float g2 = to_float(g2t[u * W]);
@@ -323,14 +179,8 @@ static int launch(Src src, const float* F, const float* alpha, float* out,
     constexpr int W = NGSF_TG_THREADS;
     const long long lanes = (long long)nb * N;
     const unsigned grid = (unsigned)((lanes + W - 1) / W);
-    const int nbx = min(min((W - 1) / N + 2, W), nb);
+    const int nbx = tg_blocks(N, nb);
     const int smem = tg_smem_bytes<Src>(nbx);
-    // the widest copy that keeps every CTA's row segment aligned: the
-    // slabs' base addresses (a view may start inside its storage) and the
-    // row length; a CTA's segment starts W elements past the last
-    const unsigned long long al =
-        (unsigned long long)(uintptr_t)src.a | (uintptr_t)src.b |
-        (unsigned long long)lanes * sizeof(typename Src::Elem);
     auto go = [&](auto kern) {
         if (smem > 48 * 1024) {
             const cudaError_t e = cudaFuncSetAttribute(
@@ -341,11 +191,14 @@ static int launch(Src src, const float* F, const float* alpha, float* out,
                                                       nb, N, nbx);
         return (int)cudaGetLastError();
     };
-    if (al % 16 == 0) return go(k_block_transfer_grad<Src, MEM, 16>);
-    if (al % 8 == 0) return go(k_block_transfer_grad<Src, MEM, 8>);
-    if (al % 4 == 0) return go(k_block_transfer_grad<Src, MEM, 4>);
-    if constexpr (sizeof(typename Src::Elem) == 2)
-        if (al % 2 == 0) return go(k_block_transfer_grad<Src, MEM, 2>);
+    switch (tg_copy_width(src, lanes)) {
+    case 16: return go(k_block_transfer_grad<Src, MEM, 16>);
+    case 8: return go(k_block_transfer_grad<Src, MEM, 8>);
+    case 4: return go(k_block_transfer_grad<Src, MEM, 4>);
+    case 2:
+        if constexpr (sizeof(typename Src::Elem) == 2)
+            return go(k_block_transfer_grad<Src, MEM, 2>);
+    }
     return (int)cudaErrorInvalidValue;
 }
 

@@ -408,7 +408,9 @@ def _k_bw_sites(g0, g2, fc, dc, F, alpha, ends):
 
     Replaces the TPU kernel ngsf_hmm_tpu/models/hmm_pallas.py
     :_k2_bw_sites. Bound by bytes (two slabs read, one written); each
-    lane walks its block's sites in reverse with a 2-vector carry."""
+    lane walks its block's sites in reverse with a 2-vector carry, fed
+    from tiles of both slabs staged in shared memory from the block's end
+    (csrc/stream_tiles.cuh, as block_transfer_grad is fed)."""
     if not g0.is_cuda:
         return _bw_sites_plain(g0, g2, fc, dc, F, alpha, ends)
     bs, nb, N, sfx = _check_stream_args("bw_sites", g0, g2, fc, dc, F,

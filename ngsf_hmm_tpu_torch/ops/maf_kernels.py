@@ -19,8 +19,10 @@ and a warp 32 / G sites, each lane C cells with their planes in
 registers (state_grad_geometry; exact_geometry for maf_exact, which
 serves fewer than 32 individuals and so goes below 8 lanes a site), and
 evaluate each cell fused; maf_macro runs its windows once a site, on one
-thread of its block. maf_sums_grad gives a site one warp, maf_window a
-thread.
+thread of its block. maf_sums_grad takes the same segments and fused
+cells, but streams: tiles of 256 / G sites go to shared memory a few
+deep and each cell's planes are built as it is read
+(sums_grad_geometry). maf_window gives a site a thread.
 
 The gl slabs may be stored in bfloat16 (models/hmm_kernels.py
 prepare_gl_inputs, gl_dtype): maf_state_grad, maf_sums_grad and
@@ -39,8 +41,8 @@ plain PyTorch version beside it only for CPU tensors. The plain versions
 are a Python loop over passes of vectorised [bs, nb, N] tensor ops with
 the kernels' Horner planes in the kernels' order; the order of the sum
 over individuals differs (torch.sum against a strided lane sum and a
-shuffle butterfly), and the segment kernels fuse their cell evaluation
-into multiply-adds, so the two agree to float32 rounding and, where that
+shuffle butterfly), and the kernels fuse their cell evaluation into
+multiply-adds, so the two agree to float32 rounding and, where that
 rounding flips the ``|prev - freq| > EPSILON`` test of a site, to one
 damped step of that site (about 1e-5).
 
@@ -227,19 +229,67 @@ def _sums_grad_plain(g0, g2, p, fq):
     return torch.stack(_sums_plain(q, T, fq, True))
 
 
+# kernel B's CTA: threads, tiles in flight, and the shared memory of an
+# H100 SM and the most one CTA may ask for (bytes); csrc/maf_sums_grad.cu
+# (NGSF_SG_THREADS, NGSF_SG_STAGES, NGSF_SG_SMEM) is built with the same
+SUMS_GRAD_THREADS = 256
+SUMS_GRAD_STAGES = 3
+SM_SMEM, CTA_SMEM, CTA_SMEM_RESERVED = 233472, 232448, 1024
+
+
+def sums_grad_ring_bytes(G, N, gl_bytes):
+    """Shared memory of kernel B's CTA with G lanes a site: SUMS_GRAD_STAGES
+    tiles of 256 / G sites, each the g0 and g2 rows (gl_bytes a cell), the
+    posterior rows (4 bytes a cell) and the sites' freq, a stage rounded up
+    to 16 bytes (csrc/maf_sums_grad.cu:sg_stage_bytes)."""
+    ts = SUMS_GRAD_THREADS // G
+    stage = ts * N * (2 * gl_bytes + 4) + 4 * ts
+    return SUMS_GRAD_STAGES * (-(-stage // 16) * 16)
+
+
+def sums_grad_geometry(N, gl_bytes):
+    """(G, staged) of kernel B (csrc/maf_sums_grad.cu) for N individuals on
+    gl slabs of gl_bytes a cell (4: float32, 2: bfloat16): G lanes a site
+    (8, 16 or 32), tiles of 256 / G sites staged in shared memory.
+
+    Among the G whose ring of tiles leaves three CTAs (24 warps) room on
+    an SM, the fewest lane slots G * ceil(N / G), the smaller G on a tie
+    (N = 100: G = 16 on either gl width, kernel A's segment); where none
+    does, G = 32 (the smallest tile, 8 sites), staged if its ring fits one
+    CTA (up to 806 individuals on float32 gl, 1,210 on bfloat16),
+    else not: the lanes then read their cells from global memory."""
+    N, gl_bytes = int(N), int(gl_bytes)
+    if N < 1 or gl_bytes not in (2, 4):
+        raise ValueError(f"sums_grad_geometry: N = {N} individuals and "
+                         f"{gl_bytes}-byte gl cells (2 or 4) expected")
+    share = SM_SMEM // 3 - CTA_SMEM_RESERVED
+    fits = [G for G in (8, 16, 32)
+            if sums_grad_ring_bytes(G, N, gl_bytes) <= share]
+    if fits:
+        return min(fits, key=lambda G: (G * -(-N // G), G)), True
+    return 32, sums_grad_ring_bytes(32, N, gl_bytes) <= CTA_SMEM
+
+
 def _k_maf_sums_grad(g0, g2, p, fq):
     """(cn, cd, dcn, dcd) [4, bs, nb] at the per-site freq fq [bs, nb].
 
     Replaces the TPU kernel ngsf_hmm_tpu/ops/maf_pallas.py
-    :_run_sums_grad_slab. Bound by bytes (three slabs read once)."""
+    :_run_sums_grad_slab. Bound by bytes (three slabs read once): tiles of
+    sites staged in shared memory a few deep by a persistent grid, G lanes
+    a site (sums_grad_geometry), each cell's planes built as it is read
+    and evaluated fused, as kernel A's cells are."""
     if not g0.is_cuda:
         return _sums_grad_plain(g0, g2, p, fq)
     bs, nb, N, sfx = _check_slabs("maf_sums_grad", g0, g2, p)
     cuda_lib.require(fq, "maf_sums_grad.fq", _f32, (bs, nb))
+    if fq.device != g0.device:
+        raise ValueError(f"maf_sums_grad.fq: on {fq.device}, slabs on "
+                         f"{g0.device}")
+    G, staged = sums_grad_geometry(N, g0.element_size())
     out = torch.empty((4, bs, nb), dtype=_f32, device=g0.device)
     rc = getattr(cuda_lib.load(), "ngsf_maf_sums_grad" + sfx)(
         g0.data_ptr(), g2.data_ptr(), p.data_ptr(), fq.data_ptr(),
-        out.data_ptr(), bs * nb, N, cuda_lib.stream())
+        out.data_ptr(), bs * nb, N, G, int(staged), cuda_lib.stream())
     cuda_lib.check(rc, "maf_sums_grad" + sfx)
     LAUNCHES["maf_sums_grad" + sfx] += 1
     return out

@@ -44,7 +44,8 @@ SOURCES = (
     "maf_exact.cu",
     "maf_macro.cu",
 )
-HEADERS = ("gl_load.cuh", "hmm_common.cuh", "maf_common.cuh")
+HEADERS = ("cp_async.cuh", "gl_load.cuh", "hmm_common.cuh", "maf_common.cuh",
+           "stream_tiles.cuh")
 # chunks of one CTA of the two-level combine: csrc/combine_blocks.cu is
 # built with it (CB_MAXC), models/hmm_kernels.py sizes its chunks by it
 COMBINE_MAX_CHUNKS = 128
@@ -76,7 +77,7 @@ _SIGNATURES = {
     "ngsf_viterbi_f32": [_P] * 10 + [_I] * 4 + [_P],
     "ngsf_viterbi_f64": [_P] * 10 + [_I] * 4 + [_P],
     "ngsf_maf_state_grad": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    "ngsf_maf_sums_grad": [_P] * 5 + [_L, _I, _P],
+    "ngsf_maf_sums_grad": [_P] * 5 + [_L] + [_I] * 3 + [_P],
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
     "ngsf_maf_exact": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],

@@ -3,8 +3,10 @@ maf_exact in its Horner form, on the CPU.
 
 maf_exact (csrc/maf_exact.cu) gives a site G lanes of 1 to 32 with C cells
 each (ops/maf_kernels.py exact_geometry); kernel A and maf_macro keep G of
-8, 16 or 32 (state_grad_geometry). No tensors for the geometry: the
-choices and the CUDA dispatch lists are read as they are. The plain
+8, 16 or 32 (state_grad_geometry); kernel B (csrc/maf_sums_grad.cu) takes
+G of 8, 16 or 32 and stages tiles of 256 / G sites in shared memory where
+they fit (sums_grad_geometry). No tensors for the geometry: the choices,
+the CUDA sources' constants and dispatch lists are read as they are. The plain
 version _exact_plain (Horner planes, _sums_plain, _advance_plain) is held
 against the JAX package's exact est_maf (XLA, linear space) at one N for
 each G that exact_geometry chooses below 64 individuals; the Pallas
@@ -38,13 +40,15 @@ torch.set_num_threads(1)
 LANES = (1, 2, 4, 8, 16, 32)
 
 
+def _source(name):
+    return (pathlib.Path(mk.__file__).parents[1] / "csrc" / name).read_text()
+
+
 def _dispatch_pairs(source):
     """The (G, C) pairs a csrc source's GC(...) dispatch list
     instantiates."""
-    src = (pathlib.Path(mk.__file__).parents[1] / "csrc" / source
-           ).read_text()
     return {(int(g), int(c))
-            for g, c in re.findall(r"GC\((\d+), (\d+)\)", src)}
+            for g, c in re.findall(r"GC\((\d+), (\d+)\)", _source(source))}
 
 
 def test_exact_geometry_fewest_slots():
@@ -87,6 +91,75 @@ def test_state_grad_geometry_unchanged():
     assert {N: mk.state_grad_geometry(N) for N in want} == want
     assert _dispatch_pairs("maf_macro.cu") == _dispatch_pairs(
         "maf_state_grad.cu")
+
+
+def test_sums_grad_geometry():
+    """Kernel B's (G, staged) for N individuals on float32 (4-byte) and
+    bfloat16 (2-byte) gl: among G of 8, 16, 32 whose ring of three tiles
+    leaves room for three CTAs an SM, the fewest lane slots G * ceil(N /
+    G), the smaller G on a tie; else G = 32, staged while its ring fits
+    one CTA. At N = 100 G = 16 on both widths (kernel A's G there), at 130
+    G = 16 (kernel A's 32: no C <= 8 at 16 lanes), staged up to 806
+    individuals on float32 gl and 1,210 on bfloat16."""
+    share = mk.SM_SMEM // 3 - mk.CTA_SMEM_RESERVED
+    for gl_bytes in (4, 2):
+        for N in range(1, 1400):
+            G, staged = mk.sums_grad_geometry(N, gl_bytes)
+            ring = {g: mk.sums_grad_ring_bytes(g, N, gl_bytes)
+                    for g in (8, 16, 32)}
+            fits = [g for g in ring if ring[g] <= share]
+            if fits:
+                least = min(g * -(-N // g) for g in fits)
+                assert staged and G == min(
+                    g for g in fits if g * -(-N // g) == least), N
+            else:
+                assert G == 32 and staged == (ring[32] <= mk.CTA_SMEM), N
+    want = {(32, 4): (8, True), (100, 4): (16, True), (100, 2): (16, True),
+            (130, 4): (16, True), (300, 4): (32, True), (806, 4): (32, True),
+            (807, 4): (32, False), (1210, 2): (32, True),
+            (1211, 2): (32, False), (1300, 4): (32, False)}
+    assert {k: mk.sums_grad_geometry(*k) for k in want} == want
+    assert mk.sums_grad_geometry(100, 4)[0] == mk.state_grad_geometry(100)[0]
+    # a tile's bytes: 8 sites x 100 cells x (2 x 4 + 4) + 8 freqs
+    assert mk.sums_grad_ring_bytes(32, 100, 4) == 3 * 9632
+
+
+def test_sums_grad_geometry_refusals_and_source():
+    """sums_grad_geometry refuses N < 1 and gl cells of other than 2 or 4
+    bytes; its constants are csrc/maf_sums_grad.cu's, whose launch takes
+    every G it picks (and refuses others)."""
+    for bad in ((0, 4), (-3, 2), (100, 8), (100, 1)):
+        with pytest.raises(ValueError):
+            mk.sums_grad_geometry(*bad)
+    src = _source("maf_sums_grad.cu")
+    consts = dict(re.findall(r"#define (NGSF_SG_\w+) (\d+)", src))
+    assert int(consts["NGSF_SG_THREADS"]) == mk.SUMS_GRAD_THREADS
+    assert int(consts["NGSF_SG_STAGES"]) == mk.SUMS_GRAD_STAGES
+    assert int(consts["NGSF_SG_SMEM"]) == mk.CTA_SMEM
+    launched = {int(g) for g in re.findall(r"if \(G == (\d+)\) return", src)}
+    picked = {mk.sums_grad_geometry(N, b)[0] for N in range(1, 1400)
+              for b in (2, 4)}
+    assert picked == launched == {8, 16, 32}
+
+
+def test_sums_grad_plain_is_kernel_a_gradient_at_its_freq():
+    """Kernel B's plain version at kernel A's final freq gives kernel A's
+    gradient rows bit for bit (the same cells and sums at the same freq;
+    on the card the two kernels share their cells and, at the same lanes a
+    site, their order, and chip_smoke.py holds them equal), on float32 and
+    bfloat16 slabs."""
+    rng = np.random.default_rng(77)
+    S, N = 300, 40
+    gl = torch.as_tensor(realistic_gls(rng, S, N).astype(np.float32))
+    p = torch.as_tensor(rng.random((S, N)).astype(np.float32))
+    p[3, :7] = 1.0  # the het floor
+    for dt in (torch.float32, torch.bfloat16):
+        tp = hk.prepare_gl_inputs(gl, torch.zeros(S), gl_dtype=dt)
+        slab = hk.pack_sites2(p, tp, 0.5)
+        a = mk._k_maf_state_grad(tp["g0"], tp["g2"], slab, 8)
+        b = mk._k_maf_sums_grad(tp["g0"], tp["g2"], slab,
+                                a[0].contiguous())
+        assert torch.equal(b, a[4:]), dt
 
 
 @pytest.mark.parametrize("N", [1, 3, 12, 20, 31, 40])
