@@ -7,10 +7,11 @@ needs one CUDA device and nvcc. It
   1. requires the card and prints its name and power limit,
   2. builds the CUDA kernels from ngsf_hmm_tpu_torch/csrc (set-up time),
      then compiles the transfer kernels, bw_sites, kernels A and B,
-     maf_exact and maf_macro alone to print their registers, spills,
-     residency, waves and SASS loops, for kernel B the SASS of a cell and
-     the cells' issue floor, and for the last two the SASS of a pass, a
-     gradient round and a window step and their issue floor (probe_build),
+     maf_exact, maf_macro and maf_window alone to print their registers,
+     spills, residency, waves and SASS loops, for kernel B the SASS of a
+     cell and the cells' issue floor, for maf_exact and maf_macro the SASS
+     of a pass, a gradient round and a window step and their issue floor,
+     for maf_window the SASS of a step and its issue floor (probe_build),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -31,12 +32,19 @@ needs one CUDA device and nvcc. It
      against ops/maf.est_maf run in float64 at the exact, main and LD
      shapes (f64_anchor); the stream kernels of all three sources at
      3,001 sites x 33 and 34 columns (every copy width of the staged
-     kernels, the transfer-and-tangent kernel and bw_sites also on slabs
-     that start one element into their storage, kernel B on slabs one and
-     two elements in); wherever the transfer-and-tangent kernel is held,
-     also against the product rule carried in float64; at the main and
-     restart shapes that kernel and bw_sites each split into the step from
-     registers and the loads alone (probe_transfer); at the LD path's
+     kernels, the transfer-and-tangent kernel, the transfer kernel and
+     bw_sites also on slabs that start one element into their storage,
+     kernel B on slabs one and two elements in); wherever the
+     transfer-and-tangent kernel is held, also against the product rule
+     carried in float64; the transfer kernel bit-equal to its plain
+     version at B = 1, 2 and 3 candidates, and maf_window at every window
+     (its fast quotient also against num / den over 2^31 random pairs of
+     its range); at the main and restart shapes the
+     transfer-and-tangent kernel, the transfer kernel and bw_sites each
+     split into the step from registers and the loads alone
+     (probe_transfer), and maf_window's longest window into its bytes
+     alone and its steps from registers, with its active lane-steps
+     against those the warps run (probe_window); at the LD path's
      shape maf_macro split into its real passes, its gradient rounds and
      its windows; the bfloat16 gl exports
      ("_bf16") of the stream and slab est_maf kernels at the main path's
@@ -85,10 +93,11 @@ needs one CUDA device and nvcc. It
 and Viterbi IBD share to another tree's log of the same run (the parent's,
 in one call). --probes runs only the measurements and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
---maf-anchor OUT [--tree DIR] runs only the float64 anchor and the exact
-and ld paths (of DIR's package), writes their readings and final freqs
-under OUT and exits 4; --against-maf OUT then sets this run's anchor
-beside them and holds the exact and ld paths' final freqs to them.
+--maf-anchor OUT [--tree DIR] runs only the float64 anchor and the main
+(without the writers), bf16, exact, ld and restart paths (of DIR's
+package), writes their readings and final freqs under OUT and exits 4;
+--against-maf OUT then sets this run's anchor beside them and holds those
+paths' final freqs to them (printing whether they are bit-equal).
 
 Any failure exits non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
@@ -193,17 +202,19 @@ BF16_LL_RTOL = 5e-4
 # per-lane emissions 14 (the prior coefficients are per (site, block)),
 # the decay 3, the transition matrix 8, the primal product, maximum and
 # rescale 20, the tangents 57 (M scaled by the lagging scale 4, the
-# factors 13, the 16 fused updates 32, their 8 products 8). The staged
-# backward stream (csrc/bw_sites.cu) the same per-lane emissions 14, decay
-# 3 and matrix 8, then its step 13 (the ratio's sum, clamp and division
-# 3, the 2-vector product 6, the two maxima 2, the rescale 2).
+# factors 13, the 16 fused updates 32, their 8 products 8); the transfer
+# kernel (csrc/transfer_stream.cuh without the tangents) its primal step
+# alone, per candidate. The staged backward stream (csrc/bw_sites.cu) the
+# same per-lane emissions 14, decay 3 and matrix 8, then its step 13 (the
+# ratio's sum, clamp and division 3, the 2-vector product 6, the two
+# maxima 2, the rescale 2).
 FLOPS_CELL = {
     "block_transfer_grad": 14 + 3 + 8 + 20 + 57,
-    "block_transfer": 37 + 21,
+    "block_transfer": 14 + 3 + 8 + 20,
     "bw_sites": 14 + 3 + 8 + 13,
     "fw_post": 37 + 18,
     "block_transfer_grad_v1": 3 + 8 + 20 + 57,
-    "block_transfer_v1": 12 + 21,
+    "block_transfer_v1": 3 + 8 + 20,
     "bw_sites_v1": 3 + 8 + 13,
     "fw_post_v1": 12 + 18,
     # est_maf (csrc/maf_common.cuh): the planes of a cell, one pass over
@@ -490,10 +501,22 @@ def check_maf_kernels(torch, dev, prep, p_slab, rec, timer, slab=True,
                 st, grads, passes, M_r, tally), reps=1, warm=0)
             err = maf_compare(torch, rec, f"maf_window (M = {M_r})", w_k,
                               w_p, ["freq", "num", "den", "active"])
-            # the line keeps the last (longest) window's times
+            if dev.type == "cuda":
+                if not torch.equal(w_k, w_p):
+                    fail(f"[{rec.label}] maf_window (M = {M_r}) is not "
+                         "bit-equal to its plain version")
+                log(f"[{rec.label}] maf_window (M = {M_r}) torch.equal its "
+                    "plain version: True")
+            # the line keeps the last (longest) window's times; the bytes
+            # this window's data needs: the state in and out, the
+            # gradients of the sites active at entry
             if not sfx:
-                rec.record("maf_window", err, ms, pms, 12 * sites * 4,
-                           total(tally) * fc["maf_window_step"])
+                rec.record("maf_window", err, ms, pms,
+                           sites * 32 + float(st[3].sum()) * 16,
+                           total(tally) * fc["maf_window_step_active"])
+                if r == len(Ms) - 1 and dev.type == "cuda":
+                    probe_window(torch, timer, rec.label, st, grads, passes,
+                                 M_r)
             st, passes = w_k, passes + M_r
         freq_k = mk.est_maf_slab(prep, p_slab)
         if not torch.equal(freq_k, mk._site_vector(st[0], prep)):
@@ -641,6 +664,7 @@ def probe_chain(torch, timer, S, N, compat):
 TRANSFER_PROBE_CU = r"""
 #include "block_transfer_grad.cu"
 #include "bw_sites.cu"
+#include "maf_window.cu"
 
 __device__ __forceinline__ void launder(float& v) { asm volatile("" : "+f"(v)); }
 
@@ -724,10 +748,11 @@ __global__ void __launch_bounds__(128) memory_alone(
     out[lane] = s;
 }
 
-// The kernel's own step (GradLane) from registers; the prior coefficients,
-// which the kernel computes once per (site, block), are computed once here
-// and laundered at every site.
-template <class Src>
+// The kernel's own step (TransferLane, with the tangents if TANG: the
+// transfer-and-tangent kernel, else the transfer kernel at B = 1) from
+// registers; the prior coefficients, which the kernel computes once per
+// (site, block), are computed once here and laundered at every site.
+template <class Src, bool TANG>
 __global__ void __launch_bounds__(128) compute_alone_own(
         Src src, const float* Fp, const float* ap, float* out, int bs, int nb,
         int N) {
@@ -742,7 +767,7 @@ __global__ void __launch_bounds__(128) compute_alone_own(
     Prior q[NGSF_UNROLL];
 #pragma unroll
     for (int u = 0; u < NGSF_UNROLL; ++u) q[u] = site_prior(ff[u]);
-    GradLane L;
+    TransferLane<TANG> L;
     for (int r0 = 0; r0 < bs; r0 += NGSF_UNROLL) {
 #pragma unroll
         for (int u = 0; u < NGSF_UNROLL; ++u) {
@@ -814,8 +839,10 @@ static int run_probe(int kind, Src src, const float* F, const float* al,
     switch (kind) {
     case 0: compute_alone<<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
     case 4: memory_alone<<<grid, 128, 0, s>>>(src, out, bs, nb, N); break;
-    // the kernel's own step, and its staged loads alone
-    case 1: compute_alone_own<<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
+    // the kernel's own step, and its staged loads alone (the transfer
+    // kernel's too: the same staging)
+    case 1: compute_alone_own<Src, true><<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
+    case 7: compute_alone_own<Src, false><<<grid, 128, 0, s>>>(src, F, al, out, bs, nb, N); break;
     case 2: return launch<Src, true>(src, F, al, out, bs, nb, N, st);
     // the backward stream's own step, and its staged loads alone
     case 5: bw_step_alone<<<grid, 128, 0, s>>>(src, F, al, ends, out, bs, nb, N); break;
@@ -840,6 +867,67 @@ extern "C" int transfer_probe(int kind, int source, const void* a,
                          F, al, ends, out, bs, nb, N, st);
     return run_probe(kind, EmSource{(const float*)a, (const float*)b, nullptr, dc},
                      F, al, ends, out, bs, nb, N, st);
+}
+
+// maf_window's steps from registers: site i runs the window of site
+// i % sub (the first sub sites of st / gr, which stay in L2), through the
+// kernel's own window_site; nothing is stored unless freq comes out -1.
+__global__ void __launch_bounds__(NGSF_WIN_THREADS) window_alone(
+        const float* st, const float* gr, float* out, long long sites,
+        long long sub, int passes0, int M) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= sites) return;
+    const long long q = i % sub;
+    float freq = st[q], num = st[sub + q], den = st[2 * sub + q];
+    if (st[3 * sub + q] == 0.0f) return;
+    const int n_in = max(0, min(M, NGSF_MAF_ITER_MAX - passes0));
+    const bool on = window_site(freq, num, den, gr[q], gr[sub + q],
+                                gr[2 * sub + q], gr[3 * sub + q], n_in, M);
+    if (freq == -1.0f) out[0] = num + den + (on ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long z) {
+    z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ULL;
+    z = (z ^ (z >> 27)) * 0x94d049bb133111ebULL;
+    return z ^ (z >> 31);
+}
+
+// maf_window's div_rn_fast against the IEEE division (num / den) over n
+// pairs of positive floats, biased exponents drawn in [elo, ehi) and
+// mantissas at random (a counter-based hash of seed); the count that
+// differ in any bit is added into *bad.
+__global__ void div_pairs(unsigned long long seed, long long n, int elo,
+                          int ehi, unsigned long long* bad) {
+    unsigned long long cnt = 0;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += (long long)gridDim.x * blockDim.x) {
+        const unsigned long long h = mix64(seed + 2 * i);
+        const unsigned long long g = mix64(seed + 2 * i + 1);
+        const unsigned span = (unsigned)(ehi - elo);
+        const float a = __uint_as_float(
+            ((elo + (unsigned)(h >> 40) % span) << 23) | (unsigned)(h & 0x7FFFFF));
+        const float b = __uint_as_float(
+            ((elo + (unsigned)(g >> 40) % span) << 23) | (unsigned)(g & 0x7FFFFF));
+        if (__float_as_uint(a / b) != __float_as_uint(div_rn_fast(a, b))) ++cnt;
+    }
+    if (cnt) atomicAdd(bad, cnt);
+}
+
+extern "C" int div_probe(unsigned long long seed, long long n, int elo,
+                         int ehi, unsigned long long* bad, void* stream) {
+    div_pairs<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(seed, n, elo, ehi,
+                                                          bad);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int window_probe(const float* st, const float* gr, float* out,
+                            long long sites, long long sub, int passes0,
+                            int M, void* stream) {
+    const unsigned grid =
+        (unsigned)((sites + NGSF_WIN_THREADS - 1) / NGSF_WIN_THREADS);
+    window_alone<<<grid, NGSF_WIN_THREADS, 0, (cudaStream_t)stream>>>(
+        st, gr, out, sites, sub, passes0, M);
+    return (int)cudaGetLastError();
 }
 """
 
@@ -923,7 +1011,7 @@ def _sass_loops(sass):
 
 PROBE_SOURCES = ("block_transfer_grad.cu", "bw_sites.cu", "block_transfer.cu",
                  "maf_state_grad.cu", "maf_sums_grad.cu", "maf_exact.cu",
-                 "maf_macro.cu")
+                 "maf_macro.cu", "maf_window.cu")
 # probe_build prints these two for the instantiation each shape uses only
 MAF_PROBE_SOURCES = ("maf_exact.cu", "maf_macro.cu")
 
@@ -1091,6 +1179,45 @@ def maf_probe_line(nice, props, loops, shapes):
             f"{floor:.3f} ms at the full schedule ({sched})")
 
 
+def window_probe_line(nice, props, loops, shapes, source):
+    """probe_build's line for maf_window: registers, spills, resident CTAs
+    of 256 threads, the SASS of a step (the window loop's instructions
+    outside its nested loops over the steps it unrolls, NGSF_WIN_UNROLL
+    in the source, 1 where the source has none) with its commonest
+    opcodes, and the issue floor at the window each shape gives (every
+    warp of 32 sites issuing for all M steps) over 4 warp instructions a
+    cycle on 132 SMs at the highest SM clock. The window loop is the
+    largest loop without the division's operand check (FCHK), the fast
+    one, where the source has one; the loop with FCHK (the true
+    division's) is printed beside it."""
+    import re
+
+    if not loops or not loops[3]:
+        return
+    m = re.search(r"#define NGSF_WIN_UNROLL (\d+)", source)
+    unroll = int(m.group(1)) if m else 1
+    n_ins, _, _, lps = loops
+    top = [lp for lp in lps if not any(_nested(o, lp) for o in lps)]
+    fast = [lp for lp in top if "FCHK" not in lp[1]]
+    exact = [lp for lp in top if "FCHK" in lp[1]]
+    lp = (fast or exact)[0]
+    per = _flat(lp, lps) / unroll
+    ops = ", ".join(f"{o} {c}" for o, c in sorted(
+        lp[1].items(), key=lambda x: -x[1])[:10])
+    ctas = resident_ctas(props["regs"], 256, props["smem"])
+    floors = ", ".join(
+        f"{k} (M = {v['M']}) "
+        f"{per * v['M'] * -(-v['sites'] // 32) / (4 * SM_COUNT * SM_CLOCK_MHZ * 1e3):.4f} ms"
+        for k, v in shapes.items())
+    other = (f"; the true division's loop {exact[0][0]} for {unroll} steps"
+             if fast and exact else "")
+    log(f"[probe build] {nice[:60]}: {props['regs']} registers, spills "
+        f"{props.get('spill', (0, 0))}; {ctas} CTAs of 256 an SM; {n_ins} "
+        f"SASS instructions; the window loop {lp[0]} for {unroll} steps "
+        f"[{ops}], {per:.1f} a step outside its nested loops; issue floor "
+        f"{floors}{other}")
+
+
 def probe_build(lanes_by_source, csrc=None):
     """For each source of PROBE_SOURCES: nvcc -Xptxas -v (registers,
     spills, shared memory of each instantiation) and cuobjdump -sass of
@@ -1166,13 +1293,18 @@ def probe_build(lanes_by_source, csrc=None):
             if src == "maf_sums_grad.cu":
                 sums_grad_probe_line(nice, p, loops.get(name), shapes)
                 continue
+            if src == "maf_window.cu":
+                window_probe_line(nice, p, loops.get(name), shapes,
+                                  (csrc / src).read_text())
+                continue
             n_ins, lp, flat, _ = loops.get(name, (0, [], 0, []))
             threads = 256 if "maf" in src else 128
             # the staged stream kernels' dynamic shared memory: three
             # tiles of 8 sites x 128 lanes of both slabs, 3 blocks' compacts
             smem = p["smem"]
-            staged = ("k_block_transfer_grad" in nice
-                      or "k_bw_sites" in nice) and "(bool)" in nice
+            stream = ("k_block_transfer" in nice or "k_bw_sites" in nice
+                      or "k_transfer_stream" in nice)
+            staged = stream and "(bool)" in nice
             if staged:
                 esz = 2 if "bfloat16" in nice else 4
                 smem += 3 * 2 * 8 * 128 * esz + 4 * 3 * 2 * 3 * 8 + (
@@ -1187,15 +1319,19 @@ def probe_build(lanes_by_source, csrc=None):
                                                    key=lambda x: -x[1])[:8])
                 + "]" for n, ops in lp[:3] if n >= 8)
             floor = ""
-            if ("k_block_transfer" in nice or "k_bw_sites" in nice) and flat:
+            if stream and flat:
                 # the loop body holds NGSF_TG_D = 8 sites (the staged
-                # kernel) or NGSF_UNROLL = 4 (a lane-per-thread kernel)
+                # kernel) or NGSF_UNROLL = 4 (a lane-per-thread kernel);
+                # a transfer stream's of BC candidates, BC steps a site
                 per = flat / (8 if staged else 4)
-                floor = f"; {per:.1f} SASS instructions a site (the loop " \
+                bc = re.search(r"\(bool\)\d, \(int\)(\d+)>", nice)
+                cands = (f" for {bc.group(1)} candidates"
+                         if "k_transfer_stream" in nice and bc else "")
+                floor = f"; {per:.1f} SASS instructions a site{cands} (the loop " \
                     f"body outside its nested loops), issue floor " + ", ".join(
                         f"{k} {per * v[1] / 32 / (4 * SM_COUNT * SM_CLOCK_MHZ * 1e3):.3f} ms"
                         for k, v in shapes.items())
-            log(f"[probe build] {nice[:110]}: {p['regs']} registers, spills "
+            log(f"[probe build] {nice[:120]}: {p['regs']} registers, spills "
                 f"{p.get('spill', (0, 0))}, smem {smem} B; "
                 f"{ctas} CTAs of {threads} an SM ({waves}); {n_ins} SASS "
                 f"instructions, loops: {top or 'none'}{floor}")
@@ -1204,18 +1340,10 @@ def probe_build(lanes_by_source, csrc=None):
 _transfer_lib = []
 
 
-def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
-    """The transfer-and-tangent kernel beside its two halves
-    (TRANSFER_PROBE_CU) on the same slabs, in turns: the kernel, the step
-    from registers (the product-rule step and the kernel's own), the
-    loads alone (in the lane order, and the kernel's own staging); then
-    the backward stream (bw_sites, from unit end vectors) beside its own
-    step from registers and the same loads alone. Prints each time and
-    the loads' rate. A measurement only: nothing is gated."""
+def probe_lib():
+    """TRANSFER_PROBE_CU built against the package's sources (once)."""
     import ctypes
 
-    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
-    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     if not _transfer_lib:
@@ -1228,8 +1356,47 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
         lib = ctypes.CDLL(str(so))
         lib.transfer_probe.argtypes = [ctypes.c_int] * 2 + \
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.window_probe.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.div_probe.argtypes = [ctypes.c_ulonglong, ctypes.c_longlong] + [
+            ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         _transfer_lib.append(lib)
-    lib = _transfer_lib[0]
+    return _transfer_lib[0]
+
+
+def timed_split(label, name, timer, runs, nbytes, head=""):
+    """Times each callable of `runs` twice, in turns (forward, then
+    backward) and prints the least of each, with the bytes' rate where
+    the name says "loads" or "bytes"."""
+    ms = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            ms[k].append(timer(runs[k])[1])
+    parts = []
+    for k, ts in ms.items():
+        t = min(ts)
+        rate = (f", {nbytes / t / 1e9:.3f} TB/s"
+                if "loads" in k or "bytes" in k else "")
+        parts.append(f"{k} {t:.4f} ms{rate}")
+    log(f"[{label}] {name} split{head}: " + "; ".join(parts))
+    return {k: min(ts) for k, ts in ms.items()}
+
+
+def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
+    """The transfer-and-tangent kernel beside its two halves
+    (TRANSFER_PROBE_CU) on the same slabs, in turns: the kernel, the step
+    from registers (the product-rule step and the kernel's own), the
+    loads alone (in the lane order, and the kernel's own staging); then
+    the transfer kernel (B = 1) beside its own primal step from registers
+    and the same loads alone; then the backward stream (bw_sites, from
+    unit end vectors) beside its own step from registers and the same
+    loads alone. Prints each time and the loads' rate. A measurement
+    only: nothing is gated."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    lib = probe_lib()
     a, b = sl[0], sl[1]
     fc = None if v1 else sl[2]
     dc = sl[-1]
@@ -1248,27 +1415,25 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
             bs, nb, N, cuda_lib.stream()), f"transfer_probe {kind}")
 
     def split(name, runs):
-        ms = {k: [] for k in runs}
-        for order in (list(runs), list(runs)[::-1]):
-            for k in order:
-                ms[k].append(timer(runs[k])[1])
-        parts = []
-        for k, ts in ms.items():
-            t = min(ts)
-            rate = (f", {nbytes / t / 1e9:.3f} TB/s" if "loads" in k else "")
-            parts.append(f"{k} {t:.3f} ms{rate}")
-        log(f"[{label}] {name} split (lanes {nb * N}, bs {bs}): "
-            + "; ".join(parts))
+        timed_split(label, name, timer, runs, nbytes,
+                    f" (lanes {nb * N}, bs {bs})")
 
     mod, sfx = (h1, "_v1") if v1 else (hk, "")
     grad = getattr(mod, "_k_block_transfer_grad" + sfx)
+    tr = getattr(mod, "_k_block_transfer" + sfx)
     bw = getattr(mod, "_k_bw_sites" + sfx)
+    F1, a1 = F_t[None].contiguous(), a_t[None].contiguous()
     lane_order = "loads alone, lane order, 4 sites in flight"
     split("transfer-and-tangent", {
         "kernel": lambda: grad(*sl, F_t, a_t),
         "step from registers (product rule)": probe(0),
         lane_order: probe(4),
         "step from registers (the kernel's own)": probe(1),
+        "loads alone, the kernel's staging": probe(2)})
+    split("transfer (block_transfer, B = 1)", {
+        "kernel": lambda: tr(*sl, F1, a1),
+        "step from registers (the kernel's own)": probe(7),
+        lane_order: probe(4),
         "loads alone, the kernel's staging": probe(2)})
     split("backward stream (bw_sites)", {
         "kernel": lambda: bw(*sl, F_t, a_t, ends),
@@ -1277,13 +1442,111 @@ def probe_transfer(torch, timer, label, sl, F_t, a_t, v1):
         "loads alone, the kernel's staging": probe(6)})
 
 
+def check_window_division(torch):
+    """maf_window's quotient (div_rn_fast, the fast path of the IEEE
+    division alone) against num / den on the card over 2^31 random pairs
+    of positive floats with biased exponents in [96, 158), which covers
+    the kernel's [NGSF_WIN_DIV_LO, NGSF_WIN_DIV_HI] = [2^-30, 2^30] with
+    its ends; fails if one pair differs in any bit. Then 2^30 pairs in
+    [2^-63, 2^64), for information."""
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    lib = probe_lib()
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for elo, ehi, n, gate in ((96, 158, 1 << 31, True),
+                              (64, 191, 1 << 30, False)):
+        bad.zero_()
+        cuda_lib.check(lib.div_probe(20_261_017 + elo, n, elo, ehi,
+                                     bad.data_ptr(), cuda_lib.stream()),
+                       "div_probe")
+        n_bad = int(bad)
+        log(f"[window division] div_rn_fast against num / den over {n} "
+            f"random pairs, biased exponents [{elo}, {ehi}): {n_bad} differ")
+        if gate and n_bad:
+            fail(f"maf_window's div_rn_fast differs from num / den on "
+                 f"{n_bad} pairs inside its range")
+
+
+# maf_window's range for its fast quotient (csrc/maf_window.cu
+# NGSF_WIN_DIV_LO, NGSF_WIN_DIV_HI)
+WIN_DIV_RANGE = (2.0 ** -30, 2.0 ** 30)
+
+
+def window_lane_steps(torch, st, grads, passes0, M):
+    """(active lane-steps, lane-steps the warps run, sites that run their
+    window again with the true division) of one window, on the plain
+    version's arithmetic: the steps each site takes while active, 32 x
+    each warp's longest (maf_window runs a thread a site, 32 consecutive
+    sites a warp, and a warp issues until its last lane stops), and the
+    active sites that fail the kernel's once-a-window test (a cn or cd of
+    a step it ran with its sign bit set, or num, den outside WIN_DIV_RANGE
+    at entry or exit)."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.utils.constants import ITER_MAX
+
+    cn0, cd0, dcn, dcd = grads
+    s = tuple(st)
+    f0 = s[0]
+    steps = torch.zeros_like(f0)
+    neg = torch.zeros_like(f0, dtype=torch.bool)
+    for k in range(M):
+        steps += s[3]
+        df = s[0] - f0
+        cn, cd = cn0 + dcn * df, cd0 + dcd * df
+        neg |= (s[3] != 0) & (torch.signbit(cn) | torch.signbit(cd))
+        s = mk._advance_plain(s, cn, cd, passes0 + k + 1 <= ITER_MAX)
+    lo, hi = WIN_DIV_RANGE
+    inside = ((st[1] >= lo) & (st[2] >= lo) & (s[1] <= hi) & (s[2] <= hi))
+    exact = (st[3] != 0) & (neg | ~inside)
+    flat = steps.reshape(-1)
+    warps = torch.nn.functional.pad(flat, (0, -flat.numel() % 32))
+    return (float(flat.sum()),
+            float(warps.reshape(-1, 32).amax(1).sum()) * 32,
+            int(exact.sum()))
+
+
+def probe_window(torch, timer, label, st, grads, passes0, M):
+    """maf_window at one window, split in turns: the kernel; M = 0 (its
+    bytes alone: the state copied, the gradients of the sites active at
+    entry read); its steps from registers (TRANSFER_PROBE_CU's
+    window_alone: the kernel's window_run on the inputs of the first
+    65,536 sites, which stay in L2, nothing stored); then the active
+    lane-steps against those the warps run (window_lane_steps). A
+    measurement only: nothing is gated."""
+    from ngsf_hmm_tpu_torch.ops import maf_kernels as mk
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    lib = probe_lib()
+    sites = st[0].numel()
+    sub = min(sites, 65_536)
+    st_s = st.reshape(4, -1)[:, :sub].contiguous()
+    gr_s = grads.reshape(4, -1)[:, :sub].contiguous()
+    sink = torch.zeros(1, device=st.device)
+    act0 = float(st[3].sum())
+    ms = timed_split(label, f"maf_window (M = {M})", timer, {
+        "kernel": lambda: mk._k_maf_window(st, grads, passes0, M),
+        "M = 0, bytes alone": lambda: mk._k_maf_window(st, grads, passes0,
+                                                       0),
+        "steps from registers": lambda: cuda_lib.check(lib.window_probe(
+            st_s.data_ptr(), gr_s.data_ptr(), sink.data_ptr(), sites, sub,
+            passes0, M, cuda_lib.stream()), "window_probe")},
+        sites * 32 + act0 * 16, f" ({sites} sites)")
+    act, run, exact = window_lane_steps(torch, st, grads, passes0, M)
+    log(f"[{label}] maf_window (M = {M}) lane-steps: {act:.0f} active of "
+        f"{run:.0f} the warps run ({act / run:.4f}); {act0:.0f} of {sites} "
+        f"sites active at entry, {exact} of them run the window again with "
+        f"the true division; the steps from registers "
+        f"{ms['steps from registers'] * 1e9 / run:.4f} ps a lane-step run")
+
+
 def probe_lanes(S, N, S_c, R=20):
     """(threads, cells) of a launch of each PROBE_SOURCES kernel: a lane
     per (block, column) for the stream kernels at the main path's shape
     and at the restart path's (R replicates of the check shape), G lanes
     a site for kernel A at the main path's shape; for maf_exact the exact
     path's shape (S_c x 20) and for maf_macro the main path's (float32 and
-    bfloat16 slabs), each with its schedule (maf_probe_line)."""
+    bfloat16 slabs), each with its schedule (maf_probe_line); for
+    maf_window the main path's sites and its longest window."""
     from ngsf_hmm_tpu_torch.models.hmm_kernels import pick_geom2
     from ngsf_hmm_tpu_torch.ops.maf import macro_rounds, macro_schedule
     from ngsf_hmm_tpu_torch.ops.maf_kernels import state_grad_geometry
@@ -1296,7 +1559,9 @@ def probe_lanes(S, N, S_c, R=20):
     K0, M = macro_schedule(N)
     macro = dict(sites=S, N=N, K0=K0, Ms=macro_rounds(K0, M))
     sums = dict(sites=bs * nb, N=N)
+    window = dict(sites=bs * nb, M=max(macro_rounds(K0, M)))
     return {"block_transfer_grad.cu": stream, "block_transfer.cu": stream,
+            "maf_window.cu": {"main": window},
             "bw_sites.cu": stream,
             "maf_state_grad.cu": {
                 "main": (bs * nb * state_grad_geometry(N)[0], bs * nb * N)},
@@ -1785,7 +2050,9 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
                        h1._em_site(*sl) if v1 else hk._gl_site(*sl), sl, k1,
                        F_t, a_t)
 
-    # ---- transfer, B = 1 (bit identity with the grad kernel) and B = 2
+    # ---- transfer, B = 1 (bit identity with the grad kernel), B = 2 (one
+    # group of two candidates) and B = 3 (a ragged second group), each
+    # bit-equal to its plain version on the card
     F1, a1 = F_t[None].contiguous(), a_t[None].contiguous()
     k4, ms = timer(lambda: kern["block_transfer"](*sl, F1, a1))
     p4, pms = timer(lambda: plain["block_transfer"](*sl, F1, a1),
@@ -1801,20 +2068,31 @@ def check_streams(torch, dev, rec, timer, label, sl, F_t, a_t, v1):
     del k1
     g, w = common_scale(k4[:4], p4[:4], k4[4], p4[4])
     err = float((g - w).abs().max())
-    F2 = torch.stack([F_t, (F_t * 0.7)]).contiguous()
-    a2 = torch.stack([a_t, (a_t * 1.5)]).contiguous()
-    kb, pb = (kern["block_transfer"](*sl, F2, a2),
-              plain["block_transfer"](*sl, F2, a2))
-    g, w = common_scale(kb[:4], pb[:4], kb[4], pb[4])
-    err = max(err, float((g - w).abs().max()))
-    if not torch.equal(kb[:, 0], k4[:, 0]) and dev.type == "cuda":
-        fail(f"[{label}] block_transfer{sfx}: candidate 0 of B = 2 differs "
-             "from B = 1")
+    equal = [torch.equal(k4, p4)]
+    F3 = torch.stack([F_t, F_t * 0.7, F_t * 0.4]).contiguous()
+    a3 = torch.stack([a_t, a_t * 1.5, a_t * 0.5]).contiguous()
+    for B in (2, 3):
+        kb, pb = (kern["block_transfer"](*sl, F3[:B], a3[:B]),
+                  plain["block_transfer"](*sl, F3[:B], a3[:B]))
+        g, w = common_scale(kb[:4], pb[:4], kb[4], pb[4])
+        err = max(err, float((g - w).abs().max()))
+        equal.append(torch.equal(kb, pb))
+        if not torch.equal(kb[:, 0], k4[:, 0]) and dev.type == "cuda":
+            fail(f"[{label}] block_transfer{sfx}: candidate 0 of B = {B} "
+                 "differs from B = 1")
+    del pb
     if err > ATOL:
         fail(f"block_transfer{sfx} [{label}]: max diff {err} > {ATOL}")
+    if dev.type == "cuda":
+        if not all(equal):
+            fail(f"block_transfer{sfx} [{label}]: not bit-equal to its "
+                 f"plain version at B = 1, 2, 3: {equal}")
+        log(f"[{label}] block_transfer{sfx} torch.equal its plain version at "
+            "B = 1, 2 and 3: True")
+    kb, F2 = kb[:, :2], F3[:2]  # two candidates for the combine below
     record("block_transfer" + sfx, err, ms, pms, src + 5 * nb * N * 4,
            flops("block_transfer"))
-    del pb, p4
+    del p4
 
     # ---- cross-block combine (two levels: chunks of L blocks)
     A_r = k4.permute(2, 0, 1, 3)
@@ -1897,25 +2175,38 @@ def offset_view(torch, t, k=1):
     return v
 
 
-def check_offset_slabs(torch, label, kerns, sl, F_t, a_t):
-    """The staged stream kernels (kerns: the transfer-and-tangent kernel
-    and bw_sites, the latter from unit end vectors) on slabs that start
-    one element into their storage (4-byte aligned float32, 2-byte
-    aligned bfloat16 base addresses: the copy width must follow them,
-    not the row length alone) equal their outputs on the aligned slabs
-    bit for bit."""
+def check_offset_slabs(torch, label, v1, sl, F_t, a_t):
+    """The staged stream kernels of one source (v1: the emission slabs'
+    "_v1" exports, else the gl slabs'): the transfer-and-tangent kernel,
+    the transfer kernel at B = 1 and B = 2 and bw_sites (from unit end
+    vectors), on slabs that start one element into their storage (4-byte
+    aligned float32, 2-byte aligned bfloat16 base addresses: the copy
+    width must follow them, not the row length alone), each equal to its
+    output on the aligned slabs bit for bit."""
+    from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
+    from ngsf_hmm_tpu_torch.models import hmm_kernels_v1 as h1
+
+    mod, sfx = (h1, "_v1") if v1 else (hk, "")
     bs, nb, N = sl[0].shape
     off = (offset_view(torch, sl[0]), offset_view(torch, sl[1])) + sl[2:]
     ends = torch.ones((2, nb, N), device=sl[0].device)
-    for name, kern in zip(("transfer-and-tangent kernel", "bw_sites"),
-                          kerns):
-        extra = (ends,) if name == "bw_sites" else ()
-        if not torch.equal(kern(*off, F_t, a_t, *extra),
-                           kern(*sl, F_t, a_t, *extra)):
+    F2 = torch.stack([F_t, F_t * 0.7]).contiguous()
+    a2 = torch.stack([a_t, a_t * 1.5]).contiguous()
+    runs = {
+        "transfer-and-tangent kernel": (
+            getattr(mod, "_k_block_transfer_grad" + sfx), (F_t, a_t)),
+        "transfer kernel (B = 1)": (getattr(mod, "_k_block_transfer" + sfx),
+                                    (F_t[None], a_t[None])),
+        "transfer kernel (B = 2)": (getattr(mod, "_k_block_transfer" + sfx),
+                                    (F2, a2)),
+        "bw_sites": (getattr(mod, "_k_bw_sites" + sfx), (F_t, a_t, ends)),
+    }
+    for name, (kern, args) in runs.items():
+        if not torch.equal(kern(*off, *args), kern(*sl, *args)):
             fail(f"[{label}] the {name} on offset slabs differs from its "
                  "output on aligned ones")
-        log(f"[{label}] {name} on slabs one element into their storage "
-            "torch.equal the aligned ones: True")
+    log(f"[{label}] {', '.join(runs)} on slabs one element into their "
+        "storage torch.equal the aligned ones: True")
 
 
 def check_offset_sums_grad(torch, label, g0, g2, p, fq):
@@ -1939,13 +2230,14 @@ def check_offset_sums_grad(torch, label, g0, g2, p, fq):
 
 def check_copy_widths(torch, dev, seed, S=3001):
     """The stream kernels of all three sources at S sites x 33 and 34
-    columns: lanes odd and lanes = 2 mod 4, so the transfer-and-tangent
-    kernel stages its rows with every copy width (16 and 8 bytes at the
-    main and restart shapes; 8 and 4 bytes here for float32 rows, 4 and 2
-    for bfloat16 ones), with a partial last tile. Each kernel against its
+    columns: lanes odd and lanes = 2 mod 4, so the staged stream kernels
+    (the transfer-and-tangent kernel, the transfer kernel, bw_sites) stage
+    their rows with every copy width (16 and 8 bytes at the main and
+    restart shapes; 8 and 4 bytes here for float32 rows, 4 and 2 for
+    bfloat16 ones), with a partial last tile. Each kernel against its
     plain version (check_streams, the primal rows' bit identity included);
-    then the transfer-and-tangent kernel and bw_sites on slabs whose base
-    addresses are not aligned to the row's width (check_offset_slabs), and
+    then those three on slabs whose base addresses are not aligned to the
+    row's width (check_offset_slabs), and
     kernel B on such slabs and the posterior slab (check_offset_sums_grad).
     Nothing is recorded."""
     from ngsf_hmm_tpu_torch.models import hmm_kernels as hk
@@ -1968,8 +2260,7 @@ def check_copy_widths(torch, dev, seed, S=3001):
                   prep["dc"])
             po = check_streams(torch, dev, Recorder(torch, label, {}), timer,
                                label, sl, F_t, a_t, False)
-            check_offset_slabs(torch, label, (hk._k_block_transfer_grad,
-                                              hk._k_bw_sites), sl, F_t, a_t)
+            check_offset_slabs(torch, label, False, sl, F_t, a_t)
             check_offset_sums_grad(torch, label, prep["g0"], prep["g2"], po,
                                    sl[2].clamp(max=0.5))
         prep = h1.prepare_inputs(calc_emission(gl_t, freq_t[:, None]), dist_t)
@@ -1977,8 +2268,7 @@ def check_copy_widths(torch, dev, seed, S=3001):
         sl = (prep["e0"], prep["e1"], prep["dc"])
         check_streams(torch, dev, Recorder(torch, label, {}), timer, label,
                       sl, F_t, a_t, True)
-        check_offset_slabs(torch, label, (h1._k_block_transfer_grad_v1,
-                                          h1._k_bw_sites_v1), sl, F_t, a_t)
+        check_offset_slabs(torch, label, True, sl, F_t, a_t)
 
 
 def check_v1_kernels(torch, dev, e_prob, dist, F, alpha, label, results,
@@ -2487,14 +2777,19 @@ def against_parent(path, label="main"):
         fail(f"[{label}] differs from {path}")
 
 
+# the paths whose final freqs --maf-anchor writes and --against-maf holds
+ANCHOR_PATHS = ("main", "bf16", "exact", "ld", "restart")
+
+
 def run_maf_anchor(torch, dev, args):
     """--maf-anchor OUT: the float64 anchor of the est_maf functions
     (est_maf_exact at the exact path's shape, macro_slab and est_maf_slab
     at the main path's, est_maf_slab on bfloat16 slabs, est_maf_rows on
-    the LD path's rows), then the exact and ld paths, on this tree's package or on --tree's; writes the anchor's
-    readings (anchor.json) and the two paths' final freqs
-    ({exact,ld}_freq.npy) under OUT for --against-maf. Prints no result
-    and returns 4."""
+    the LD path's rows), then the main (without the writers), bf16, exact,
+    ld and restart paths, on this tree's package or on --tree's; writes
+    the anchor's readings (anchor.json) and the paths' final freqs
+    ({label}_freq.npy) under OUT for --against-maf. Prints no result and
+    returns 4."""
     import pathlib
 
     out = pathlib.Path(args.maf_anchor)
@@ -2508,11 +2803,23 @@ def run_maf_anchor(torch, dev, args):
         torch, dev, gl, dist, freq, F0, a0, raw=True)
     anchor_macro(torch, rows, p_m, prep, p_raw, slab_raw)
     del rows, p_m, prep, p_raw, slab_raw
+    _, main = run_path(torch, dev, "main", gl, dist, freq, F0, a0, 1,
+                       CHAIN_KERNELS + SLAB_KERNELS, writers=False)
+    run_path(torch, dev, "bf16", gl, dist, freq, F0, a0, 1,
+             BF16_KERNELS + ("combine_blocks", "viterbi", "maf_window"),
+             writers=False, gl_bf16=True, against=main)
     run_path(torch, dev, "exact", gl_x, dist_x, freq_x, F0_x, a0_x, 1,
              CHAIN_KERNELS + ("maf_exact",), writers=False)
     run_ld_path(torch, dev, "ld", gl, dist, freq, F0, a0, 1)
+    del gl
+    gl_c, dist_c, freq_c, _, _ = simulate(args.check_sites, args.ind,
+                                          args.seed + 7, n_chrom=1)
+    step = max(2, min(100_000, args.check_sites // 2))
+    dist_c[step::step] = np.inf  # as main() makes the restart path's data
+    run_restart_path(torch, dev, gl_c, dist_c, freq_c, 3 if dev.type ==
+                     "cpu" else 20, args.seed + 5)
     (out / "anchor.json").write_text(json.dumps(ANCHORS, indent=1))
-    for label in ("exact", "ld"):
+    for label in ANCHOR_PATHS:
         np.save(out / f"{label}_freq.npy", FINAL_FREQ[label])
     log(f"maf anchor written to {out}; no result is printed for it")
     return 4
@@ -2520,11 +2827,13 @@ def run_maf_anchor(torch, dev, args):
 
 def against_maf(path):
     """Sets this run's float64 anchor beside another tree's and holds the
-    exact and ld paths' final freqs to that tree's (run_maf_anchor's
-    files under `path`, the same data from the same seed): prints whether
-    each function's largest and mean distance from float64 and its share
-    of sites off by a step are no larger than there (information); fails
-    unless the final freqs are within MAF_FREQ_ATOL of there."""
+    main, bf16, exact, ld and restart paths' final freqs to that tree's
+    (run_maf_anchor's files under `path`, the same data from the same
+    seed; those of the paths it wrote): prints whether each function's
+    largest and mean distance from float64 and its share of sites off by a
+    step are no larger than there (information) and whether each path's
+    final freqs are bit-equal to there's; fails unless they are within
+    MAF_FREQ_ATOL of there."""
     import pathlib
 
     path = pathlib.Path(path)
@@ -2538,10 +2847,13 @@ def against_maf(path):
             f"(there {r['max']:.4g}), mean {mine['mean']:.4g} (there "
             f"{r['mean']:.4g}), sites off {mine['share']:.4g} (there "
             f"{r['share']:.4g}); no further than there: {closer}")
-    for label in ("exact", "ld"):
-        d = float(np.abs(FINAL_FREQ[label]
-                         - np.load(path / f"{label}_freq.npy")).max())
-        log(f"[{label}] final freq against {path}: max diff {d:.3g}")
+    for label in ANCHOR_PATHS:
+        if not (path / f"{label}_freq.npy").exists():
+            continue
+        want = np.load(path / f"{label}_freq.npy")
+        d = float(np.abs(FINAL_FREQ[label] - want).max())
+        log(f"[{label}] final freq against {path}: max diff {d:.3g}, "
+            f"bit-equal {np.array_equal(FINAL_FREQ[label], want)}")
         if d > MAF_FREQ_ATOL:
             fail(f"[{label}] final freq off {path}'s by {d}")
 
@@ -2620,6 +2932,7 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
         fail(f"[{label}] best replicate {res.best_rep} is not the argmax "
              f"of {res.rep_lkl}")
     best, freq = res.best, res.rep_freq
+    FINAL_FREQ[label] = freq
     if freq.shape != (R, S):
         fail(f"[{label}] per-replicate freq of the wrong shape")
     if not np.all(np.isfinite(freq)) or not np.all((freq >= 0) & (freq <= 1)):
@@ -2899,15 +3212,16 @@ def main():
                     "the main and restart shapes; exits 4")
     ap.add_argument("--maf-anchor", metavar="OUT",
                     help="only the float64 anchor of the one-launch "
-                    "est_maf functions and the exact and ld paths, their "
-                    "readings and final freqs written under OUT; exits 4")
+                    "est_maf functions and the main, bf16, exact, ld and "
+                    "restart paths, their readings and final freqs written "
+                    "under OUT; exits 4")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --maf-anchor: run another tree's package "
                     "(its ngsf_hmm_tpu_torch under DIR)")
     ap.add_argument("--against-maf", metavar="DIR",
-                    help="hold the float64 anchor and the exact and ld "
-                    "paths' final freqs to another tree's --maf-anchor "
-                    "files under DIR")
+                    help="hold the float64 anchor and the main, bf16, "
+                    "exact, ld and restart paths' final freqs to another "
+                    "tree's --maf-anchor files under DIR")
     args = ap.parse_args()
     if args.tree:
         if not args.maf_anchor:
@@ -2967,6 +3281,7 @@ def main():
         t0 = time.perf_counter()
         probe_build(probe_lanes(args.sites, args.ind, args.check_sites))
         log(f"[probe build] done in {time.perf_counter() - t0:.1f} s")
+        check_window_division(torch)
         if args.probes:
             return run_probes(torch, dev, args)
 

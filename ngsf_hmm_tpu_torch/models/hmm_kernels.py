@@ -250,14 +250,34 @@ def _block_transfer_plain(g0, g2, fc, dc, F, alpha):
                           g0.device)
 
 
+# candidates a CTA of the transfer kernel takes at most (csrc
+# transfer_stream.cuh: NGSF_BT_CANDS)
+TRANSFER_CANDS = 2
+
+
+def transfer_candidates(B):
+    """(candidates a CTA takes, CTA groups over the candidates) of the
+    transfer kernel for B candidates: each group reads the slabs once and
+    runs its candidates' chains from the same tiles. One for B = 1 (every
+    EM route), else TRANSFER_CANDS, the last group ragged for an odd B."""
+    B = int(B)
+    if B < 1:
+        raise ValueError(f"block_transfer: B = {B} candidates")
+    bc = 1 if B == 1 else TRANSFER_CANDS
+    return bc, -(-B // bc)
+
+
 def _k_block_transfer(g0, g2, fc, dc, F, alpha):
     """Per-block transfer products for B candidates, [5, B, nb, N].
 
     Replaces the TPU kernel ngsf_hmm_tpu/models/hmm_pallas.py
     :_k2_block_transfer. On the card it is bound by bytes (the two gl
-    slabs, read once per candidate); the design keeps every carry in
-    registers and reads the slabs with neighbouring threads on
-    neighbouring addresses."""
+    slabs). It is the primal-only instantiation of the transfer-and-tangent
+    kernel's stream (csrc/transfer_stream.cuh): tiles of 8 sites x 128
+    lanes of both slabs staged in shared memory with cp.async, three deep,
+    the prior coefficients once per (site, block), and the candidates of a
+    group (transfer_candidates) run from the same tiles, so the slabs are
+    read once per group."""
     if not g0.is_cuda:
         return _block_transfer_plain(g0, g2, fc, dc, F, alpha)
     B = F.shape[0]
@@ -267,7 +287,7 @@ def _k_block_transfer(g0, g2, fc, dc, F, alpha):
     rc = getattr(cuda_lib.load(), "ngsf_block_transfer" + sfx)(
         g0.data_ptr(), g2.data_ptr(), fc.data_ptr(), dc.data_ptr(),
         F.data_ptr(), alpha.data_ptr(), out.data_ptr(), bs, nb, N, B,
-        cuda_lib.stream())
+        transfer_candidates(B)[0], cuda_lib.stream())
     cuda_lib.check(rc, "block_transfer" + sfx)
     LAUNCHES["block_transfer" + sfx] += 1
     return out
@@ -288,7 +308,7 @@ def _fma(a, b, c):
 
 def _tangent_step(c, cF, ca, m, e0, e1, onem, dxp, F):
     """The (F, alpha) tangents of one site step, d(C M) = dC M + C dM, in
-    csrc/block_transfer_grad.cu's order (GradLane::site), each of its
+    csrc/transfer_stream.cuh's order (TransferLane::tangents), each of its
     fused multiply-adds as _fma: dM/dF has two equal rows, so row r of
     C dM/dF is (-oe0 s_r, oe1 s_r) with s_r = c_r0 + c_r1; row r of
     C dM/dalpha is (de0 w_r, -de1 w_r) with w_r = (1 - F) c_r1 - F c_r0."""

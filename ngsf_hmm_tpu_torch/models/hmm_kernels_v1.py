@@ -41,7 +41,7 @@ from ..utils.cuda_lib import LAUNCHES, PLAIN_CALLS
 from .hmm_kernels import (_bw_loop, _combine_blocks, _fw_loop, _params,
                           _transfer_grad_loop, _transfer_loop,
                           _unpack_sites2, grad_from_carries, pack_sites2,
-                          pick_geom2, site_compact)
+                          pick_geom2, site_compact, transfer_candidates)
 
 _f32 = torch.float32
 
@@ -120,7 +120,8 @@ def _k_block_transfer_v1(e0, e1, dc, F, alpha):
 
     Replaces the TPU kernel ngsf_hmm_tpu/models/hmm_pallas.py
     :_k_block_transfer. Bound by bytes: the two emission slabs, read once
-    per candidate."""
+    per group of candidates; block_transfer's staged stream on the
+    emission slabs (csrc/transfer_stream.cuh)."""
     if not e0.is_cuda:
         return _block_transfer_v1_plain(e0, e1, dc, F, alpha)
     B = F.shape[0]
@@ -128,7 +129,8 @@ def _k_block_transfer_v1(e0, e1, dc, F, alpha):
     out = torch.empty((5, B, nb, L), dtype=_f32, device=e0.device)
     rc = cuda_lib.load().ngsf_block_transfer_v1(
         e0.data_ptr(), e1.data_ptr(), dc.data_ptr(), F.data_ptr(),
-        alpha.data_ptr(), out.data_ptr(), bs, nb, L, B, cuda_lib.stream())
+        alpha.data_ptr(), out.data_ptr(), bs, nb, L, B,
+        transfer_candidates(B)[0], cuda_lib.stream())
     cuda_lib.check(rc, "block_transfer_v1")
     LAUNCHES["block_transfer_v1"] += 1
     return out

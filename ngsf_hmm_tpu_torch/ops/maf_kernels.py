@@ -331,8 +331,13 @@ def _k_maf_window(st, grads, passes0, M_r):
     reference's trip budget while passes0 + k + 1 <= ITER_MAX.
 
     Stands for ngsf_hmm_tpu/ops/maf_pallas.py:_virtual_window (unrolled
-    XLA elementwise math there). Bound by the latency of M_r dependent
-    divisions a thread, far above its bytes."""
+    XLA elementwise math there). A thread a site; bound by instruction
+    issue, far above its bytes: a site inactive at entry reads no
+    gradients and runs no step, an active one steps without the flag's
+    multiplies, its trip-budget test hoisted and its quotient on the fast
+    path of the IEEE division alone, where a once-a-window test shows
+    that path gives the division's bits (csrc/maf_window.cu). Equal to
+    _virtual_window_plain bit for bit."""
     if not st.is_cuda:
         return _virtual_window_plain(st, grads, passes0, M_r)
     _, bs, nb = st.shape

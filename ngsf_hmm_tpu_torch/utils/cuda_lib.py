@@ -45,7 +45,7 @@ SOURCES = (
     "maf_macro.cu",
 )
 HEADERS = ("cp_async.cuh", "gl_load.cuh", "hmm_common.cuh", "maf_common.cuh",
-           "stream_tiles.cuh")
+           "stream_tiles.cuh", "transfer_stream.cuh")
 # chunks of one CTA of the two-level combine: csrc/combine_blocks.cu is
 # built with it (CB_MAXC), models/hmm_kernels.py sizes its chunks by it
 COMBINE_MAX_CHUNKS = 128
@@ -65,11 +65,11 @@ build_log = []  # one (source, nvcc stderr) pair per compiled source
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ngsf_block_transfer": [_P] * 7 + [_I] * 4 + [_P],
+    "ngsf_block_transfer": [_P] * 7 + [_I] * 5 + [_P],
     "ngsf_block_transfer_grad": [_P] * 7 + [_I] * 3 + [_P],
     "ngsf_bw_sites": [_P] * 8 + [_I] * 3 + [_P],
     "ngsf_fw_post": [_P] * 9 + [_I] * 3 + [_P],
-    "ngsf_block_transfer_v1": [_P] * 6 + [_I] * 4 + [_P],
+    "ngsf_block_transfer_v1": [_P] * 6 + [_I] * 5 + [_P],
     "ngsf_block_transfer_grad_v1": [_P] * 6 + [_I] * 3 + [_P],
     "ngsf_bw_sites_v1": [_P] * 7 + [_I] * 3 + [_P],
     "ngsf_fw_post_v1": [_P] * 8 + [_I] * 3 + [_P],
