@@ -59,8 +59,13 @@ needs one CUDA device and nvcc. It
      measured time, and at 20,011 x 100 and 2,003 x 263 to 3,001 (every
      group of individuals a forward CTA holds) with chromosome breaks,
      forced (init_logits, final_state) and traceback blocks of 256, 1 and
-     77 sites,
-  4. drives seven paths, each with the launch counts set to 0 just before
+     77 sites; the float64 scan tier's kernels (log_block_transfer,
+     log_combine, log_sweep in both modes, maf_log, also on a replicate's
+     strided columns and in float32) at the ragged check shape and at the
+     scan path's shape, and at 2,003 x 33 (a site at distance 0) the
+     chain functions against the per-site oracle loops and float64
+     Viterbi against its plain version,
+  4. drives nine paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
        main     1,000,000 sites x 100 individuals, float32, freq_est 1 (the
@@ -73,6 +78,10 @@ needs one CUDA device and nvcc. It
                 writers, the same est_maf_slab / macro_slab step at its
                 end; its final state held against main's at the JAX
                 package's bf16 envelopes,
+       scan     the main path's data in float64 on the scan tier (the
+                JAX package's default, numerics "log": the log chain
+                kernels, maf_log, float64 Viterbi), no writers; its final
+                F set beside main's float32 F (the gap printed, no gate),
        fixed    200,003 x 100, freq_est 0 (frequencies held fixed), with
                 the writers,
        exact    200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
@@ -81,14 +90,17 @@ needs one CUDA device and nvcc. It
                 stack_restart_states -> run_em_restarts, replicates
                 flattened into 2,000 columns on the emission-slab kernels,
                 freq_est 1, best-replicate Viterbi, no writers),
+       scan_restart  the same on the scan tier (2,000 columns of the log
+                chain, maf_log a replicate, float64),
        ld       the main path's data with --e_prob 2 --freq_est 1 (the LD
                 path: haplotype EM at init, LD emissions, the emission-slab
                 kernels and maf_macro every iteration), no writers,
        ld2      the first 200,003 sites of that data with --freq_est 2
                 --e_prob 2 (the haplotype EM every iteration), no writers,
-  5. runs the CLI four times at a small size (--freq e, freq_est 1; once
-     more with --n_rep 3; once with --freq_est 2 --e_prob 2; once with
-     --gl_bf16 1).
+  5. runs the CLI five times at a small size: on the fused tier (--dtype
+     float32 --kernel pallas) with --freq e, freq_est 1; once more with
+     --n_rep 3; once with --freq_est 2 --e_prob 2; once with --gl_bf16 1;
+     then once on the default tier (the float64 scan tier).
 --against LOG also holds main's streams per iteration, final tot_lkl
 and Viterbi IBD share to another tree's log of the same run (the parent's,
 in one call). --probes runs only the measurements and exits 4;
@@ -99,7 +111,9 @@ package), writes their readings and final freqs under OUT and exits 4;
 --against-maf OUT then sets this run's anchor beside them and holds those
 paths' final freqs to them (printing whether they are bit-equal).
 
-Any failure exits non-zero. The last line printed is
+The fused-tier paths and CLI runs name numerics "pallas" / --dtype float32
+--kernel pallas, the scan tier being the default. Any failure exits
+non-zero. The last line printed is
 {"ok": true, "device": {...}}; the line before it lists every kernel with
 its launches summed over the paths and per path, its error against the
 plain version and its times.
@@ -123,6 +137,8 @@ import numpy as np
 # outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# float64 outside the tensor cores: half the float32 rate
+PEAK_F64 = 33.5e12
 
 # Viterbi's forward chain floor, derived, not measured: dependent float32
 # operations a site (add, max, add, add, max, add under the in-place
@@ -237,6 +253,52 @@ FLOPS_CELL = {
 # steps its data needs (maf_pass_fma, maf_grad_fma per cell;
 # maf_window_step_active per site).
 
+# The scan tier's kernels (csrc/log_chain.cu, csrc/maf_log.cu) against
+# their plain versions: the same float64 operations in the same order on
+# the card (the plain versions' torch.exp / torch.log and the kernels' exp /
+# log are both CUDA's float64 libm), so what is left is the last bits of
+# those functions carried along a chain: log values relative to
+# max(|x|, 1), posteriors absolute, the gradient's block sums relative to
+# max(|g|, 1). maf_log sums over the individuals in a warp's butterfly
+# where the plain version takes torch.sum: freq relative LOG_MAF_RTOL
+# except at sites where that rounding flips the EPSILON test (share and
+# step as MAF_FLIP_SHARE / MAF_FREQ_ATOL). Against the per-site oracle
+# loops (another association of the same steps): the JAX package's float64
+# gates (tests/test_torch_log_chain.py).
+LOG_RTOL = 1e-12
+LOG_P_ATOL = 1e-9
+LOG_G_RTOL = 1e-9
+LOG_MAF_RTOL = 1e-10
+ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
+# Float64 operations a (site, column) of the scan tier's kernels, counted
+# from csrc/log_chain.cu and csrc/maf_log.cu with an exp or a log taken as
+# LOG_TRANS_OPS operations (an estimate of the range reduction and
+# polynomial of CUDA's float64 exp and log, which the card runs as float64
+# FMA and add): logsum2 = 2 exp + log + max, 2 subtractions, 2 adds;
+# the site's decay and four log transitions 1 + exp + 6 + 4 log; a
+# forward or backward step of a 2-vector 2 logsum2 + 6 adds.
+LOG_TRANS_OPS = 20
+LOGSUM2_OPS = 3 * LOG_TRANS_OPS + 5
+LOGSUM3_OPS = 4 * LOG_TRANS_OPS + 8
+LOG_SITE_OPS = 7 + 5 * LOG_TRANS_OPS
+LOG_STEP_OPS = 2 * LOGSUM2_OPS + 6
+FLOPS_LOG = {
+    # per (site, column): the site, the product's two rows
+    "log_block_transfer": LOG_SITE_OPS + 2 * LOG_STEP_OPS,
+    # per (block, column): the forward and the backward walk
+    "log_combine": 2 * LOG_STEP_OPS,
+    # per (site, column): the site and a step forward, again backward,
+    # then p = exp(fw1 + bw1 - L) (posterior mode) or the four u terms
+    # and the two sums (grad mode)
+    "log_sweep": 2 * (LOG_SITE_OPS + LOG_STEP_OPS) + 2 + LOG_TRANS_OPS,
+    "log_sweep_grad": 2 * (LOG_SITE_OPS + LOG_STEP_OPS) + 4
+    + 4 * (LOG_TRANS_OPS + 1) + 17,
+    # per (site, individual, pass): calc_hwe 10 + 3 log, post_prob's
+    # logsum3 and 3 adds, 2 exp of 2 differences, the sums 5
+    "maf_log": 10 + 3 * LOG_TRANS_OPS + 3 + LOGSUM3_OPS
+    + 2 * (LOG_TRANS_OPS + 1) + 5,
+}
+
 KERNELS = {
     # name: (source, TPU kernel replaced)
     "block_transfer_grad": (
@@ -279,7 +341,21 @@ KERNELS = {
                    "ngsf_hmm_tpu/models/hmm_pallas.py:685"),
     "block_transfer_v1": ("ngsf_hmm_tpu_torch/csrc/block_transfer.cu",
                           "ngsf_hmm_tpu/models/hmm_pallas.py:385"),
+    # the float64 scan tier (port-only: the JAX package runs lax.scans)
+    "log_block_transfer": (
+        "ngsf_hmm_tpu_torch/csrc/log_chain.cu",
+        "ngsf_hmm_tpu/models/hmm.py:51 (lax.scan, no TPU kernel)"),
+    "log_combine": (
+        "ngsf_hmm_tpu_torch/csrc/log_chain.cu",
+        "ngsf_hmm_tpu/models/hmm.py:158 (lax.scan, no TPU kernel)"),
+    "log_sweep": (
+        "ngsf_hmm_tpu_torch/csrc/log_chain.cu",
+        "ngsf_hmm_tpu/models/hmm.py:94 (lax.scans, no TPU kernel)"),
+    "maf_log": (
+        "ngsf_hmm_tpu_torch/csrc/maf_log.cu",
+        "ngsf_hmm_tpu/ops/maf.py:90 (lax.while_loop, no TPU kernel)"),
 }
+LOG_KERNELS = ("log_block_transfer", "log_combine", "log_sweep", "maf_log")
 STREAM_KERNELS = ("block_transfer_grad", "block_transfer", "bw_sites",
                   "fw_post")
 CHAIN_KERNELS = ("block_transfer_grad", "bw_sites", "fw_post",
@@ -382,8 +458,8 @@ class Recorder:
     def __init__(self, torch, label, results):
         self.torch, self.label, self.results = torch, label, results
 
-    def record(self, name, err, ms, plain_ms, nbytes, flops):
-        b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    def record(self, name, err, ms, plain_ms, nbytes, flops, peak=PEAK_F32):
+        b_ms, f_ms = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
         if not np.isfinite(err):
             fail(f"{name} [{self.label}]: non-finite difference")
         r = self.results.setdefault(name, {"max_abs_err": 0.0})
@@ -2409,6 +2485,194 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
            S * N * 40)
 
 
+def log_err(torch, got, want):
+    """Largest |got - want| / max(|want|, 1) over the finite entries; the
+    non-finite ones (-inf log products) must match exactly."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin) or not torch.equal(
+            got[~fin], want[~fin]):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    g, w = got[fin], want[fin]
+    return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+def maf_log_passes(torch, gl, p):
+    """The passes each site's log-space est_maf runs on these inputs (the
+    plain loop of ops/maf.est_maf, recording when each site stops): the
+    work maf_log's bound counts."""
+    from ngsf_hmm_tpu_torch.ops.hwe import calc_hwe, post_prob
+    from ngsf_hmm_tpu_torch.utils.constants import EPSILON, ITER_MAX
+
+    S = gl.shape[0]
+    dt = gl.dtype
+    two_m_F = 2.0 - p
+    T_w = two_m_F.sum(-1)
+    freq = torch.full((S,), 0.01, dtype=dt, device=gl.device)
+    num, den = torch.zeros_like(freq), torch.zeros_like(freq)
+    active = torch.ones((S,), dtype=torch.bool, device=gl.device)
+    passes = torch.zeros((S,), dtype=torch.int64, device=gl.device)
+    k = 0
+    while bool(active.any()):
+        pp = torch.exp(post_prob(gl, calc_hwe(freq[:, None], p)))
+        cn = (pp[..., 1] + pp[..., 2] * two_m_F).sum(-1)
+        cd = T_w + (pp[..., 1] * p).sum(-1)
+        prev = freq
+        num = torch.where(active, num + cn, num)
+        den = torch.where(active, den + cd, den)
+        freq = torch.where(active, num / den, freq)
+        k += 1
+        passes += active.long()
+        active = active & ((prev - freq).abs() > EPSILON) & (k <= ITER_MAX)
+    return passes
+
+
+def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
+                      oracle=False):
+    """The scan tier's kernels (csrc/log_chain.cu, csrc/maf_log.cu) against
+    their plain versions on `dev`, float64, at this shape: the emissions of
+    (gl, freq), the chain's three kernels (the sweep in both modes), then
+    maf_log on the chain's snapped posterior, also on a replicate's
+    strided columns and in its float32 instantiation; each timed beside
+    its bound (float64 operations over PEAK_F64, or bytes). oracle=True
+    (a small shape): also the public chain functions against the per-site
+    oracle loops of models/hmm.py and float64 Viterbi against its plain
+    version. Fails the run on any disagreement."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+
+    timer = Timer(torch, dev)
+    f64 = torch.float64
+    S, N = gl.shape[0], gl.shape[1]
+    gl_t = torch.as_tensor(gl).to(dev).to(f64)
+    dist_t = torch.as_tensor(dist).to(dev, f64)
+    F_t = torch.as_tensor(F).to(dev, f64)
+    a_t = torch.as_tensor(alpha).to(dev, f64)
+    e = calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
+    bs, nb = thmm.log_geometry(S, N)
+    log(f"[{label}] scan tier: S={S} N={N} float64 bs={bs} nb={nb} "
+        f"lanes={nb * N} pad sites={nb * bs - S} "
+        f"breaks={int(np.isinf(dist).sum())}")
+    rec = Recorder(torch, label, results)
+    chain = (e, dist_t, F_t, a_t)
+    e_bytes = S * N * 16 + S * 8 + N * 16
+
+    def gate(name, err, tol):
+        if not err <= tol:
+            fail(f"{name} [{label}]: {err} against the plain version "
+                 f"(gate {tol})")
+        return err
+
+    A, ms = timer(lambda: thmm.log_block_transfer(*chain, bs, nb))
+    A_p, pms = timer(lambda: thmm._log_block_transfer_plain(*chain, bs, nb),
+                     reps=1, warm=0)
+    err = gate("log_block_transfer", log_err(torch, A, A_p), LOG_RTOL)
+    rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * N * 32,
+               S * N * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
+
+    out, ms = timer(lambda: thmm.log_combine(A, F_t))
+    out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
+                       warm=0)
+    err = gate("log_combine", max(log_err(torch, a, b)
+                                  for a, b in zip(out, out_p)), LOG_RTOL)
+    rec.record("log_combine", err, ms, pms, nb * N * (32 + 32) + N * 24,
+               nb * N * FLOPS_LOG["log_combine"], peak=PEAK_F64)
+    fw_in, bw_out, ll_f, ll_b = out
+    rec.finite("log_combine", ll_f, ll_b)
+    sweep = chain + (fw_in, bw_out, ll_f, bs)
+
+    p, ms_p = timer(lambda: thmm.log_sweep(*sweep))
+    p_p, pms_p = timer(lambda: thmm._log_sweep_plain(*sweep, False), reps=1,
+                       warm=0)
+    err_p = gate("log_sweep (posterior)", float((p - p_p).abs().max()),
+                 LOG_P_ATOL)
+    g, ms = timer(lambda: thmm.log_sweep(*sweep, grad=True))
+    g_p, pms = timer(lambda: thmm._log_sweep_plain(*sweep, True), reps=1,
+                     warm=0)
+    err_g = gate("log_sweep (grad)", log_err(torch, g, g_p), LOG_G_RTOL)
+    rec.finite("log_sweep", p, g)
+    in_bytes = e_bytes + nb * N * 32 + N * 8
+    # the grad mode (every L-BFGS evaluation) is the kernel's line; the
+    # posterior mode (the E-step) rides beside it
+    rec.record("log_sweep", max(err_p, err_g), ms, pms,
+               in_bytes + nb * N * 16, S * N * FLOPS_LOG["log_sweep_grad"],
+               peak=PEAK_F64)
+    b_ms = max((in_bytes + S * N * 8) / PEAK_BYTES,
+               S * N * FLOPS_LOG["log_sweep"] / PEAK_F64) * 1e3
+    results["log_sweep"]["posterior_mode"] = dict(
+        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, max_abs_err=err_p)
+    log(f"[{label}] log_sweep posterior mode: max diff {err_p:.3g}, kernel "
+        f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms")
+    del A, A_p, out_p, p_p, g_p
+
+    # ---- maf_log on the chain's snapped posterior
+    ps = check_interv(p)
+    f_k, ms = timer(lambda: tmaf.est_maf(gl_t, ps))
+    f_p, pms = timer(lambda: tmaf._est_maf_plain(gl_t, ps), reps=1, warm=0)
+    rec.finite("maf_log", f_k, f_p)
+    rel = (f_k - f_p).abs() / f_p.abs()
+    off = rel > LOG_MAF_RTOL
+    share = float(off.double().mean())
+    d_off = float((f_k - f_p)[off].abs().max()) if bool(off.any()) else 0.0
+    err = float(rel[~off].max())
+    log(f"[{label}] maf_log: sites stopping at another pass {share:.3g} "
+        f"of {S}, their freq max diff {d_off:.3g}")
+    if share > MAF_FLIP_SHARE or d_off > MAF_FREQ_ATOL:
+        fail(f"maf_log [{label}]: {share} of the sites off the plain "
+             f"version, by up to {d_off}")
+    passes = maf_log_passes(torch, gl_t, ps)
+    rec.record("maf_log", err, ms, pms, S * N * 32 + S * 8,
+               int(passes.sum()) * N * FLOPS_LOG["maf_log"], peak=PEAK_F64)
+    log(f"[{label}] maf_log: passes a site min {int(passes.min())}, mean "
+        f"{float(passes.double().mean()):.2f}, max {int(passes.max())}")
+    flat = torch.cat([ps * 0.5, ps], dim=1)  # replicate 1 of R = 2
+    if not torch.equal(tmaf.est_maf(gl_t, flat[:, N:]), f_k):
+        fail(f"maf_log [{label}]: strided replicate columns differ")
+    f32 = torch.float32
+    f_k32 = tmaf.est_maf(gl_t.to(f32), ps.to(f32))
+    f_p32 = tmaf._est_maf_plain(gl_t.to(f32), ps.to(f32))
+    rel32 = (f_k32 - f_p32).abs() / f_p32.abs()
+    share32 = float((rel32 > MAF_RTOL).double().mean())
+    d32 = float((f_k32 - f_p32).abs().max())
+    log(f"[{label}] maf_log float32: sites off by more than {MAF_RTOL} "
+        f"{share32:.3g}, freq max diff {d32:.3g}")
+    if share32 > MAF_FLIP_SHARE or d32 > MAF_FREQ_ATOL:
+        fail(f"maf_log float32 [{label}]: {share32} of the sites off, by "
+             f"up to {d32}")
+    del p, g, ps, flat
+
+    if not oracle:
+        return
+    # ---- the public chain functions against the per-site oracle loops
+    p_k, lf_k, lb_k = thmm.posteriors(*chain)
+    p_s, lf_s, lb_s = thmm.posteriors_sites(*chain)
+    L_k, gF_k, ga_k = thmm.loglik_value_and_grad(F_t, a_t, e, dist_t)
+    L_s, gF_s, ga_s = thmm.loglik_value_and_grad_sites(F_t, a_t, e, dist_t)
+    rel_ll = max(float(((a - b).abs() / b.abs()).max())
+                 for a, b in ((lf_k, lf_s), (lb_k, lb_s), (L_k, L_s)))
+    d_p = float((p_k - p_s).abs().max())
+    rel_g = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+                for a, b in ((gF_k, gF_s), (ga_k, ga_s)))
+    log(f"[{label}] the kernels against the per-site oracle: ll rel "
+        f"{rel_ll:.3g}, p_ibd {d_p:.3g}, gradient rel {rel_g:.3g}")
+    if rel_ll > ORACLE_LL_RTOL or d_p > ORACLE_P_ATOL or rel_g > \
+            ORACLE_G_RTOL:
+        fail(f"[{label}] the scan tier's kernels off the per-site oracle")
+    # ---- float64 Viterbi (the scan path's decode) against its plain loop
+    for compat in (True, False):
+        pk, sk = thmm.viterbi(*chain, compat=compat)
+        pp, sp = thmm._viterbi_plain(*chain, compat, None, None)
+        mism = int((pk != pp).sum())
+        if mism or not torch.equal(sk, sp):
+            fail(f"viterbi float64 [{label}] compat={compat}: {mism} path "
+                 f"cells differ, scores equal {torch.equal(sk, sp)}")
+    log(f"[{label}] viterbi float64: paths equal to the plain version, "
+        "scores bit-equal (both variants)")
+
+
 def check_viterbi_hooks(torch, dev, S, N, seed):
     """Viterbi against its plain version at S sites with chromosome breaks
     (S not a multiple of the traceback blocks below): both variants, the
@@ -2573,8 +2837,8 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
                                                     F_MAX, F_MIN)
 
     S, N = gl.shape[0], gl.shape[1]
-    opts = EMOptions(freq_est=freq_est, min_iters=3, max_iters=4, verbose=0,
-                     gl_bf16=gl_bf16)
+    opts = EMOptions(numerics="pallas", freq_est=freq_est, min_iters=3,
+                     max_iters=4, verbose=0, gl_bf16=gl_bf16)
     # fixed frequencies are the simulated ones; estimated ones start flat
     freq0 = freq_true if freq_est == 0 else np.full(S, 0.2)
     iters = []
@@ -2703,6 +2967,7 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
                  "iterations")
     finals = (freq, to_np(st.ind_lkl))
     FINAL_FREQ[label] = freq
+    FINAL_F[label] = indF
     if against is not None:
         d_freq = float(np.abs(freq - against[0]).max())
         d_ll = float((np.abs(finals[1] - against[1])
@@ -2742,10 +3007,144 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     return counts, finals
 
 
+def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
+    """The scan tier (the JAX package's default: --dtype float64 --kernel
+    scan): init_state -> run_em (numerics "log", freq_est 1, min_iters 3,
+    max_iters 4) -> float64 Viterbi on the main path's data in float64, no
+    writers, with the launch counts set to 0 just before and read just
+    after; fails unless the scan tier's kernels and Viterbi were launched,
+    no plain version was called and what came out is sound. Prints s an
+    iteration, L-BFGS evaluations an iteration, ms of the freq M-step, s
+    of Viterbi and the peak memory (init_state and run_em apart), and the
+    largest gap between its final F and the main path's float32 F (no
+    gate). Returns the launch counts."""
+    from ngsf_hmm_tpu_torch.models import em as tem
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+    from ngsf_hmm_tpu_torch.utils.constants import (ALPHA_MAX, ALPHA_MIN,
+                                                    F_MAX, F_MIN)
+
+    label = "scan"
+    S, N = gl.shape[0], gl.shape[1]
+    f64 = torch.float64
+    opts = tem.EMOptions(freq_est=1, min_iters=3, max_iters=4, verbose=0)
+    iters = []
+
+    def trace(event, **kw):
+        if event == "iter_done":
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            iters.append((kw["dt"], kw["tot_lkl"],
+                          cuda_lib.LAUNCHES["log_sweep"]))
+
+    reset_peak(torch, dev, label)
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    gl_t = torch.as_tensor(gl).to(dev).to(f64)
+    dist_t = torch.as_tensor(dist).to(dev, f64)
+    state = tem.init_state(gl_t, np.full(S, 0.2), indF0, alpha0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    peak_init = peak_gib(torch, dev, reset=True)
+    with MafTimer(torch, dev, tem, ("est_maf",)) as maf_timer, MafTimer(
+            torch, dev, tem, ("viterbi",)) as vit_timer:
+        res = tem.run_em(gl_t, dist_t, state, opts, trace=trace, device=dev)
+    del state
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    peak = peak_gib(torch, dev)
+    counts = dict(cuda_lib.LAUNCHES)
+    plain = dict(cuda_lib.PLAIN_CALLS)
+
+    # ---- what came out
+    need = LOG_KERNELS + ("viterbi",)
+    if dev.type == "cuda":
+        if plain:
+            fail(f"[{label}] the path called plain versions: {plain}")
+        missing = [k for k in need if counts.get(k, 0) < 1]
+        if missing:
+            fail(f"[{label}] never launched: {missing} (counts {counts})")
+        other = [k for k in counts if k not in need]
+        if other:
+            fail(f"[{label}] the scan tier launched {other}")
+    elif not plain:
+        fail("rehearsal: no plain version was called")
+    if not (opts.min_iters <= res.n_iters <= opts.max_iters
+            and len(iters) == res.n_iters):
+        fail(f"[{label}] expected 3 or 4 EM iterations, ran {res.n_iters}")
+    h = res.lkl_history
+    # freq estimated: run_path's gate (the run ends above its start, no
+    # step loses more than 1e-4 of |ll|)
+    if not np.all(np.isfinite(h)) or not h[-1] > h[0] or any(
+            b < a - 1e-4 * abs(h[0]) for a, b in zip(h, h[1:])):
+        fail(f"[{label}] total log-likelihood went wrong: {h}")
+    st = res.state
+    to_np = lambda t: t.detach().cpu().numpy()
+    indF, alpha, freq = to_np(st.indF), to_np(st.alpha), to_np(st.freq)
+    p_ibd = to_np(st.p_ibd)
+    if st.freq.dtype != f64 or st.e_prob.dtype != f64:
+        fail(f"[{label}] the state is not float64")
+    if not (np.all(indF >= F_MIN) and np.all(indF <= F_MAX)
+            and np.all(alpha >= ALPHA_MIN) and np.all(alpha <= ALPHA_MAX)):
+        fail(f"[{label}] indF / alpha outside their boxes")
+    if p_ibd.shape != (S, N) or not np.all((p_ibd >= 0) & (p_ibd <= 1)):
+        fail(f"[{label}] p_ibd not in [0, 1] or of the wrong shape")
+    if res.path.shape != (S, N) or not np.isin(res.path, (0, 1)).all():
+        fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
+    if freq.shape != (S,) or not np.all(np.isfinite(freq)) or not np.all(
+            (freq >= 0) & (freq <= 1)):
+        fail(f"[{label}] freq not finite in [0, 1] or of the wrong shape")
+    want = calc_emission(gl_t[:1000], st.freq[:1000, None])
+    if not torch.equal(st.e_prob[:1000], want):
+        fail(f"[{label}] e_prob is not calc_emission of the final freq")
+    f_err = float(np.abs(freq - freq_true).mean())
+    corr = float(np.corrcoef(freq, freq_true)[0, 1])
+    log(f"[{label}] freq: mean |freq - simulated| {f_err:.4f}, correlation "
+        f"with the simulated {corr:.3f}")
+    if f_err > 0.2 or corr < 0.3:
+        fail(f"[{label}] estimated freq unrelated to the simulated one")
+    maf_ms, vit_ms = maf_timer.ms(), vit_timer.ms()
+    if len(maf_ms) != res.n_iters or len(vit_ms) != 1:
+        fail(f"[{label}] {len(maf_ms)} freq M-steps in {res.n_iters} "
+             f"iterations, {len(vit_ms)} Viterbi calls")
+    FINAL_FREQ[label] = freq
+
+    sweeps = np.diff([0] + [c for _, _, c in iters])
+    log(f"[{label}] S={S} N={N} float64 scan tier (numerics 'log'), "
+        f"freq_est 1: init_state {t_init:.2f} s, init + {res.n_iters} EM "
+        f"iterations + Viterbi {t_all:.2f} s")
+    for i, ((dt, tot, _), n_sw) in enumerate(zip(iters, sweeps), 1):
+        log(f"[{label}] iteration {i}: {dt:.3f} s, tot_lkl {tot:.3f}, chain "
+            f"sweeps {n_sw} (E-step 1 + L-BFGS evaluations {n_sw - 1}), "
+            f"L-BFGS outer iterations {res.opt_iters[i - 1]}, freq M-step "
+            f"(maf_log) {maf_ms[i - 1]:.3f} ms")
+    log(f"[{label}] Viterbi (float64) {vit_ms[0] / 1e3:.3f} s; mean indF "
+        f"{indF.mean():.4f}, mean alpha {alpha.mean():.4f}, Viterbi IBD "
+        f"share {res.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
+    if "main" in FINAL_F:
+        d = np.abs(indF - FINAL_F["main"])
+        log(f"[{label}] final F against the main path's float32 F (same "
+            f"data, fused tier): largest gap {d.max():.4g} (individual "
+            f"{int(d.argmax()) + 1}), mean gap {d.mean():.4g} (no gate)")
+    SUMMARY[label] = dict(sweeps=[int(n) for n in sweeps],
+                          tot_lkl=float(iters[-1][1]),
+                          ibd=f"{res.path.mean():.4f}")
+    if dev.type == "cuda":
+        log(f"[{label}] peak torch.cuda.max_memory_allocated "
+            f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
+            f"run_em {peak:.2f} GiB")
+    log(f"[{label}] launches {counts}")
+    return counts
+
+
 # per path: L-BFGS streams per iteration, final tot_lkl, Viterbi IBD share
 SUMMARY = {}
 # per path: the final freq [S]
 FINAL_FREQ = {}
+# per path: the final indF [N]
+FINAL_F = {}
 
 
 def against_parent(path, label="main"):
@@ -2858,21 +3257,28 @@ def against_maf(path):
             fail(f"[{label}] final freq off {path}'s by {d}")
 
 
-def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
+def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
     """stack_restart_states -> run_em_restarts (R lockstep replicates
     flattened into the columns, freq_est 1, min_iters 3, max_iters 4,
     best-replicate Viterbi; no writers) with the launch counts set to 0
     just before and read just after; fails unless every kernel of the
     route was launched, no plain version was called and what came out is
-    sound. Returns the launch counts."""
-    from ngsf_hmm_tpu_torch.models.em import EMOptions, rebuild_eprob
+    sound. scan: on the float64 scan tier ("scan_restart": the log chain
+    over the R * N columns, maf_log a replicate) instead of the fused
+    tier's emission-slab kernels ("restart"). Returns the launch
+    counts."""
+    from ngsf_hmm_tpu_torch.models import em as tem
     from ngsf_hmm_tpu_torch.models.restart import (run_em_restarts,
                                                    stack_restart_states)
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
-    label = "restart"
+    label = "scan_restart" if scan else "restart"
     S, N = gl.shape[0], gl.shape[1]
-    opts = EMOptions(freq_est=1, min_iters=3, max_iters=4, verbose=0)
+    opts = tem.EMOptions(numerics="log" if scan else "pallas", freq_est=1,
+                         min_iters=3, max_iters=4, verbose=0)
+    dtype = torch.float64 if scan else torch.float32
+    stream = "log_sweep" if scan else "block_transfer_grad_v1"
     iters = []
 
     def trace(event, **kw):
@@ -2880,17 +3286,20 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             iters.append((kw["dt"], kw["tot_lkl"].copy(), kw["active"].copy(),
-                          cuda_lib.LAUNCHES["block_transfer_grad_v1"]))
+                          cuda_lib.LAUNCHES[stream]))
 
     reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
+    gl = torch.as_tensor(gl).to(dev).to(dtype)
     # the ngsF-HMM.sh protocol: random inits, replicate r from seed + r
     box = [stack_restart_states(gl, R, seed, device=dev)]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    with MafTimer(torch, dev) as maf_timer:
+    peak_init = peak_gib(torch, dev, reset=True)
+    timed = (tem, ("est_maf",)) if scan else (None, None)
+    with MafTimer(torch, dev, *timed) as maf_timer:
         # handed over without a reference kept here: run_em_restarts holds
         # only its flattened copy
         res = run_em_restarts(gl, dist, box.pop(), opts, trace=trace,
@@ -2902,17 +3311,18 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
     plain = dict(cuda_lib.PLAIN_CALLS)
 
     # ---- what came out
-    need = V1_KERNELS + ("combine_blocks", "viterbi") + SLAB_KERNELS
+    need = (LOG_KERNELS + ("viterbi",) if scan else
+            V1_KERNELS + ("combine_blocks", "viterbi") + SLAB_KERNELS)
     if dev.type == "cuda":
         if plain:
             fail(f"[{label}] the path called plain versions: {plain}")
         missing = [k for k in need if counts.get(k, 0) < 1]
         if missing:
             fail(f"[{label}] never launched: {missing} (counts {counts})")
-        fused = [k for k in CHAIN_KERNELS[:4] if counts.get(k, 0)]
-        if fused:
-            fail(f"[{label}] the flattened route launched gl-layout kernels "
-                 f"{fused}")
+        other = [k for k in counts if k not in need and (
+            scan or k in CHAIN_KERNELS[:4])]
+        if other:
+            fail(f"[{label}] the flattened route launched {other}")
     elif not plain:
         fail("rehearsal: no plain version was called")
     n_it = len(iters)
@@ -2945,7 +3355,8 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
         fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
     if not np.array_equal(freq[res.best_rep], st.freq.cpu().numpy()):
         fail(f"[{label}] the best state's freq is not its replicate's")
-    want = rebuild_eprob(torch.as_tensor(gl[:1000]).to(dev), st.freq[:1000])
+    want = (calc_emission(gl[:1000], st.freq[:1000, None]) if scan else
+            tem.rebuild_eprob(gl[:1000], st.freq[:1000]))
     if not torch.equal(st.e_prob[:1000], want):
         fail(f"[{label}] the best replicate's e_prob is not its freq's")
     f_err = np.abs(freq - freq_true[None]).mean(1)
@@ -2955,7 +3366,8 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
         fail(f"[{label}] {len(maf_ms)} est_maf calls in {n_it} iterations "
              f"of {R} replicates")
 
-    log(f"[{label}] S={S} N={N} R={R} ({R * N} columns) float32 freq_est 1: "
+    log(f"[{label}] S={S} N={N} R={R} ({R * N} columns) "
+        f"{'float64 scan tier' if scan else 'float32'} freq_est 1: "
         f"init {t_init:.2f} s, init + {n_it} iterations + Viterbi "
         f"{t_all:.2f} s")
     probes = np.diff([0] + [c for _, _, _, c in iters])
@@ -2963,10 +3375,14 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
         m = maf_ms[(i - 1) * R:i * R]
         log(f"[{label}] iteration {i}: {dt:.3f} s, best tot_lkl "
             f"{tot.max():.3f} (replicate {int(np.argmax(tot)) + 1}), active "
-            f"{int(act.sum())}/{R}, transfer+tangent streams {n_str} "
-            f"(L-BFGS probes), L-BFGS outer iterations "
-            f"{best.opt_iters[i - 1]}, freq M-step {sum(m):.3f} ms "
-            f"({R} est_maf_slab calls, {min(m):.3f}-{max(m):.3f} ms each)")
+            f"{int(act.sum())}/{R}, "
+            + (f"chain sweeps {n_str} (E-step 1 + L-BFGS evaluations "
+               f"{n_str - 1})" if scan else
+               f"transfer+tangent streams {n_str} (L-BFGS probes)")
+            + f", L-BFGS outer iterations {best.opt_iters[i - 1]}, freq "
+            f"M-step {sum(m):.3f} ms ({R} "
+            f"{'maf_log' if scan else 'est_maf_slab'} calls, "
+            f"{min(m):.3f}-{max(m):.3f} ms each)")
     for r in range(R):
         log(f"[{label}] replicate {r + 1}: logLkl {res.rep_lkl[r]:.3f} "
             f"({res.rep_iters[r]} iters), mean |freq - simulated| {f_err[r]:.4f}, correlation {corr[r]:.3f}"
@@ -2974,8 +3390,10 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed):
     log(f"[{label}] best replicate {res.best_rep + 1}: Viterbi IBD share "
         f"{best.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
     if dev.type == "cuda":
+        peak = peak_gib(torch, dev)
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{max(peak_init, peak):.2f} GiB: the inits {peak_init:.2f} GiB, "
+            f"run_em_restarts {peak:.2f} GiB")
     log(f"[{label}] launches {counts}")
     return counts
 
@@ -2994,8 +3412,8 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     S, N = gl.shape[0], gl.shape[1]
-    opts = tem.EMOptions(freq_est=freq_est, e_prob_calc=2, min_iters=3,
-                         max_iters=4, verbose=0)
+    opts = tem.EMOptions(numerics="pallas", freq_est=freq_est,
+                         e_prob_calc=2, min_iters=3, max_iters=4, verbose=0)
     iters, fwbw = [], []
 
     def trace(event, **kw):
@@ -3119,13 +3537,14 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
     return counts
 
 
-def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False):
+def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
-    with numpy (n_rep > 1: that many lockstep restarts, the best
-    replicate's files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the
-    JAX package's warning on stderr; gl_bf16: --gl_bf16 1 at 40
-    individuals, the slab est_maf route); exit code and outputs
-    checked."""
+    with numpy, on the fused tier (--dtype float32 --kernel pallas), or
+    with scan on the default tier (no --dtype / --kernel: the float64 scan
+    tier) (n_rep > 1: that many lockstep restarts, the best replicate's
+    files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the JAX
+    package's warning on stderr; gl_bf16: --gl_bf16 1 at 40 individuals,
+    the slab est_maf route); exit code and outputs checked."""
     S, N = 5000, 40 if ld or gl_bf16 else 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3150,6 +3569,8 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False):
             cmd += ["--e_prob", "2"]
         if gl_bf16:
             cmd += ["--gl_bf16", "1"]
+        if not scan:
+            cmd += ["--dtype", "float32", "--kernel", "pallas"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                            cwd=os.path.dirname(os.path.abspath(__file__)))
         if r.returncode != 0:
@@ -3185,6 +3606,8 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False):
                      f"header {head}")
             final += f"; {best[0].strip()}"
         log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}"
+            + (" (default tier: float64 scan)" if scan else
+               " --dtype float32 --kernel pallas")
             + (" --freq_est 2 --e_prob 2" if ld else "")
             + (" --gl_bf16 1" if gl_bf16 else "")
             + f": {final.strip()}")
@@ -3307,6 +3730,19 @@ def main():
                       S=301 if args.rehearse else 3001)
     log(f"[check] done in {time.perf_counter() - t0:.1f} s")
 
+    # ---- the scan tier's kernels (float64): at the ragged check shape
+    # with breaks, against the per-site oracle (and float64 Viterbi) at a
+    # small one; at the scan path's shape below
+    t0 = time.perf_counter()
+    check_log_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c,
+                      "check", results)
+    S_o, N_o = (211, 5) if args.rehearse else (2_003, 33)
+    gl_o, dist_o, freq_o, F0_o, a0_o = simulate(S_o, N_o, args.seed + 23)
+    dist_o[S_o // 2] = 0.0  # a site at distance 0: the identity
+    check_log_kernels(torch, dev, gl_o, dist_o, freq_o, F0_o, a0_o,
+                      "oracle shape", {}, oracle=True)
+    log(f"[scan check] done in {time.perf_counter() - t0:.1f} s")
+
     t0 = time.perf_counter()
     (gl_x, dist_x, freq_x, F0_x, a0_x), gl_t, prep, p_sites, p_slab = (
         exact_shape_inputs(torch, dev, S_c, N_x, args.seed + 11))
@@ -3351,6 +3787,10 @@ def main():
     t0 = time.perf_counter()
     check_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape", results,
                   probes=True, bf16=True)
+    # the scan tier's kernels at the scan path's shape (the main path's
+    # data in float64): their lines keep this shape's times
+    check_log_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape",
+                      results)
     rows, p_m, prep, p_slab, p_raw, slab_raw = maf_rows_inputs(
         torch, dev, gl, dist, freq, F0, a0, raw=True)
     check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
@@ -3398,6 +3838,10 @@ def main():
         torch, dev, "bf16", gl, dist, freq, F0, a0, 1,
         BF16_KERNELS + ("combine_blocks", "viterbi", "maf_window"),
         writers=False, gl_bf16=True, against=finals["main"])
+    # the float64 scan tier (the JAX package's default) on the same data
+    t0 = time.perf_counter()
+    paths["scan"] = run_scan_path(torch, dev, gl, dist, freq, F0, a0)
+    log(f"[scan] path done in {time.perf_counter() - t0:.1f} s")
     # ld2 on the first check-shape count of the same sites: its haplotype
     # EM every iteration is about 15 s at 10^6 sites (plain torch), which
     # would put the script above half its time limit
@@ -3417,6 +3861,11 @@ def main():
     del gl_x
     paths["restart"] = run_restart_path(torch, dev, gl_c, dist_c, freq_c,
                                         R, args.seed + 5)
+    t0 = time.perf_counter()
+    paths["scan_restart"] = run_restart_path(torch, dev, gl_c, dist_c,
+                                             freq_c, R, args.seed + 5,
+                                             scan=True)
+    log(f"[scan_restart] path done in {time.perf_counter() - t0:.1f} s")
     del gl_c
     if args.against_maf:
         against_maf(args.against_maf)
@@ -3426,12 +3875,14 @@ def main():
     if dev.type == "cuda" and min(counts.values()) < 1:
         fail(f"a kernel was launched on no path: {counts}")
 
-    # ---- phase 5: the CLI: one run, three lockstep restarts, the LD path,
-    # bfloat16 gl slabs
+    # ---- phase 5: the CLI: on the fused tier one run, three lockstep
+    # restarts, the LD path, bfloat16 gl slabs; then one run on the
+    # default tier (the float64 scan tier)
     run_cli(dev, args.seed)
     run_cli(dev, args.seed, n_rep=3)
     run_cli(dev, args.seed, ld=True)
     run_cli(dev, args.seed, gl_bf16=True)
+    run_cli(dev, args.seed, scan=True)
 
     if args.rehearse:
         log("rehearsal on the CPU finished; no result is printed for it")
@@ -3449,8 +3900,9 @@ def main():
             "launches_per_path": {p: int(c.get(name, 0))
                                   for p, c in paths.items()},
         })
-        if "ms_by_shape" in r:
-            kernels[-1]["ms_by_shape"] = r["ms_by_shape"]
+        for extra in ("ms_by_shape", "posterior_mode"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

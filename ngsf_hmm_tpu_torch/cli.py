@@ -5,19 +5,21 @@ parse_args.cpp:43-68), with getopt_long_only semantics: options work with
 one or two leading dashes and unambiguous prefixes, values via "--opt v"
 or "--opt=v". Verbose levels 1-3 reproduce the reference's progress lines.
 
-This package carries one tier: the float32 chain kernels on a single
-device, with the allele frequencies estimated every iteration
-(--freq_est 1, the default as in the reference) or held fixed
-(--freq_est 0), for one run or for --n_rep R lockstep restarts (the
+This package carries two tiers on a single device, as the JAX package's
+CLI names them: the float64 scan tier (--dtype float64 --kernel scan, the
+default, as in the JAX package) and the fused float32 kernels (--dtype
+float32 --kernel pallas). Both estimate the allele frequencies every
+iteration (--freq_est 1, the default as in the reference) or hold them
+fixed (--freq_est 0), for one run or for --n_rep R lockstep restarts (the
 ngsF-HMM.sh protocol; the best replicate's files are written). One run
 also takes the LD path (--freq_est 2, --e_prob 2), in the corrected form
-of the JAX package (a warning says so). It is the default for --kernel /
---dtype here; --gl_bf16 1 stores its gl slabs in bfloat16 (auto keeps
-float32, as the JAX package does for runs held in memory). The flags of
-tiers still to be ported (--freq_est 2 or --e_prob other than 1 with
---n_rep, --mesh, --stream_chunk, --checkpoint, --opt compat, other
---kernel / --dtype values, --profile) are parsed and refused with an
-error.
+of the JAX package (a warning says so). --gl_bf16 1 (fused tier only)
+stores the gl slabs in bfloat16 (auto keeps float32, as the JAX package
+does for runs held in memory). The flags of tiers still to be ported
+(--freq_est 2 or --e_prob other than 1 with --n_rep, --mesh,
+--stream_chunk, --checkpoint, --opt compat, --kernel blocked / linear,
+--dtype float32 with --kernel scan and float64 with --kernel pallas,
+--profile) are parsed and refused with an error.
 
 Example:
     python -m ngsf_hmm_tpu_torch --geno data.glf.gz --loglkl --n_ind 20 \
@@ -60,9 +62,9 @@ _OPTIONS = [
     ("verbose", True, "V"),
     ("seed", True, "S"),
     # engine-only extensions (not in the reference):
-    ("dtype", True, None),  # float32 (the only tier ported so far)
+    ("dtype", True, None),  # float64 (default, scan) | float32 (pallas)
     ("device", True, None),  # cuda (default) | cpu
-    ("kernel", True, None),  # pallas = the fused kernel tier (only one ported)
+    ("kernel", True, None),  # scan (default) | pallas (| blocked | linear)
     ("n_rep", True, None),  # multi-restart replicates (ngsF-HMM.sh N_REP)
     ("gl_bf16", True, None),  # 0 | 1 | auto: bfloat16 gl slabs
     # The flags below belong to tiers this package does not carry yet;
@@ -169,9 +171,9 @@ def parse_args(argv):
         # rand(), i.e. deterministically 1804289383 % 1000 = 383
         # (parse_args.cpp:30)
         "seed": 383,
-        "dtype": "float32",
+        "dtype": "float64",
         "device": "cuda",
-        "kernel": "pallas",
+        "kernel": "scan",
         "opt": "speed",
         "gl_bf16": "auto",
         "n_rep": 1,
@@ -316,20 +318,39 @@ def validate(p):
 
 
 def _refuse_unported(p):
-    """Errors for the flags of tiers still to be ported."""
-    if p["dtype"] != "float32":
-        error("main", f"--dtype {p['dtype']} is not ported yet: this "
-                      "package runs the fused float32 tier only")
-    if p["kernel"] != "pallas":
-        error("main", f"--kernel {p['kernel']} is not ported yet: this "
-                      "package runs the fused kernel tier ('pallas') only")
-    if p["n_rep"] > 1 and (p["freq_est"] == 2 or p["e_prob"] != 1):
-        error("main", f"--freq_est {p['freq_est']} / --e_prob {p['e_prob']} "
-                      "with --n_rep is not ported yet")
-    if p["opt"] != "speed":
-        error("main", "--opt compat is not ported yet")
+    """Errors for invalid flags and for those of tiers still to be ported;
+    each refusal names the ROADMAP item that will lift it."""
+    kernel, dtype = p["kernel"], p["dtype"]
+    if kernel not in ("scan", "blocked", "linear", "pallas"):
+        error("main", f"invalid --kernel {kernel!r} "
+                      "(scan|blocked|linear|pallas)")
+    if dtype not in ("float32", "float64"):
+        error("main", f"invalid --dtype {dtype!r} (float64|float32)")
     if p["gl_bf16"] not in ("0", "1", "auto"):
         error("main", f"invalid --gl_bf16 {p['gl_bf16']!r} (0|1|auto)")
+    if p["gl_bf16"] == "1" and kernel != "pallas":
+        error("main", "--gl_bf16 1 requires --kernel pallas (the bf16 "
+                      "slabs exist only in the fused tier)")
+    if kernel in ("blocked", "linear"):
+        error("main", f"--kernel {kernel} is not ported yet (ROADMAP queue "
+                      "1: 'models/hmm_blocked.py'); --kernel scan and "
+                      "--kernel pallas are")
+    if kernel == "scan" and dtype == "float32":
+        error("main", "--dtype float32 --kernel scan is not ported yet "
+                      "(ROADMAP queue 1: 'float32 scan tier'); the scan "
+                      "tier runs float64")
+    if kernel == "pallas" and dtype == "float64":
+        error("main", "--dtype float64 --kernel pallas is not ported yet "
+                      "(ROADMAP queue 1: 'float64 on the fused tier'); the "
+                      "fused tier runs float32")
+    if p["n_rep"] > 1 and (p["freq_est"] == 2 or p["e_prob"] != 1):
+        item = ("log-tier --n_rep with the LD modes" if kernel == "scan"
+                else "models/hmm_blocked.py")
+        error("main", f"--freq_est {p['freq_est']} / --e_prob {p['e_prob']} "
+                      f"with --n_rep is not ported yet (ROADMAP queue 1: "
+                      f"'{item}')")
+    if p["opt"] != "speed":
+        error("main", "--opt compat is not ported yet")
     if p["n_rep"] < 1:
         error("main", "invalid number of replicates (--n_rep)!")
     for flag in ("checkpoint", "mesh", "coordinator", "profile"):
@@ -378,7 +399,7 @@ def main(argv=None):
         dev = _device(p["device"])
     except RuntimeError as e:
         error("main", str(e))
-    dtype = torch.float32
+    dtype = torch.float64 if p["dtype"] == "float64" else torch.float32
     catch_sig()
 
     # ---- sniff input format (ngsF-HMM.cpp:47-63)
@@ -496,6 +517,7 @@ def main(argv=None):
         max_iters=p["max_iters"],
         min_epsilon=p["min_epsilon"],
         verbose=p["verbose"],
+        numerics="log" if p["kernel"] == "scan" else "pallas",
         log_every=p["log"],
         # runs held in memory: bfloat16 gl slabs only when asked for
         # ("auto" keeps float32, as the JAX CLI does there)

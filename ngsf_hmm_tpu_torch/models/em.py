@@ -7,8 +7,15 @@ optimises ALL individuals simultaneously with a batched box-constrained
 L-BFGS on analytic gradients, and the convergence bookkeeping
 (EM.cpp:56,75-97) is replicated exactly on the host (models/driver.py).
 
-This module carries the single-device kernel routes, float32:
-  - the fused route (models/hmm_kernels.py, emissions built in-kernel from
+This module carries the single-device kernel routes:
+  - the scan tier (numerics "log", the default, float64; the JAX package's
+    --dtype float64 --kernel scan): the blocked log-space chain of
+    models/hmm.py (csrc/log_chain.cu) for the E-step and every L-BFGS
+    evaluation, the exact log-space est_maf (ops/maf.est_maf,
+    csrc/maf_log.cu) for the freq M-step, calc_emission for the
+    emissions; one run with freq_est 0/1/2 and e_prob_calc 0/1/2, or R
+    replicates flattened into the columns (freq_est 0/1, e_prob_calc 1);
+  - the fused route (numerics "pallas", float32) (models/hmm_kernels.py, emissions built in-kernel from
     (gl, freq)): one run, e_prob_calc 1, freq_est 1 (the default; the
     freq M-step on the est_maf kernels of ops/maf_kernels.py) or 0
     (allele frequencies held fixed); its gl slabs are float32, or
@@ -45,7 +52,7 @@ from ..ops.haplo import haplo_freq, ld_emissions
 from ..ops.hwe import calc_hwe, check_interv, post_prob
 from ..ops.maf import est_maf, macro_schedule
 from ..utils.constants import ALPHA_MAX, ALPHA_MIN, F_MAX, F_MIN
-from . import hmm_kernels, hmm_kernels_v1
+from . import hmm, hmm_kernels, hmm_kernels_v1
 from .hmm import viterbi
 from .lbfgsb import MVAL, lbfgsb_minimize
 
@@ -54,9 +61,10 @@ from .lbfgsb import MVAL, lbfgsb_minimize
 class EMOptions:
     """Engine flags mirroring the reference CLI (parse_args.cpp:43-68).
 
-    The defaults are those of the one tier this package has (the fused
-    float32 kernels); the fields of tiers still to come are kept so that
-    callers can name them and be refused."""
+    The defaults are the JAX package's: the float64 scan tier (numerics
+    "log"); numerics "pallas" is the fused float32 tier. The fields of
+    tiers still to come are kept so that callers can name them and be
+    refused."""
 
     freq_est: int = 1
     e_prob_calc: int = 1
@@ -76,7 +84,8 @@ class EMOptions:
     # ENDPOINTS still agree to the shared PGTOL.
     warm_mstep: bool = True
     block_size: object = None  # blocked torch tier: not ported
-    numerics: str = "pallas"  # the fused kernel tier (the JAX name)
+    # "log" (the float64 scan tier) or "pallas" (the fused float32 tier)
+    numerics: str = "log"
     log_every: int = 0  # --log N cadence (EM.cpp:59-63)
     # Store the fused route's gl slabs in bfloat16 (half their bytes, the
     # dominant ones of every stream). The kernels upcast at load, so only
@@ -115,26 +124,37 @@ class EMResult:
     opt_memory: object = None
 
 
-def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="pallas",
-            block_size=None):
-    """Raise for every option value this package does not carry yet."""
+def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="log",
+            block_size=None, dtype=None):
+    """Raise for every option value this package does not carry yet.
+    dtype: the state's, where known (the scan tier is float64 only)."""
     if n_rep < 1:
         raise ValueError(f"n_rep must be >= 1, got {n_rep}")
     if freq_est not in (0, 1, 2):
         raise ValueError(f"freq_est must be 0, 1 or 2, got {freq_est}")
     if e_prob_calc not in (0, 1, 2):
         raise ValueError(f"e_prob_calc must be 0, 1 or 2, got {e_prob_calc}")
+    if numerics not in ("log", "pallas"):
+        raise NotImplementedError(
+            f"numerics {numerics!r} (ROADMAP queue 1: "
+            "'models/hmm_blocked.py'); the scan tier 'log' and the fused "
+            "kernel tier 'pallas' are ported")
     if n_rep > 1 and (freq_est not in (0, 1) or e_prob_calc != 1):
+        if numerics == "log":
+            # the JAX package vmaps em_iteration over the replicates
+            raise NotImplementedError(
+                f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
+                f"{e_prob_calc} on the scan tier (ROADMAP queue 1: "
+                "'log-tier --n_rep with the LD modes')")
         # the JAX package runs these replicates vmapped on its linear
         # tier (models/restart.py:91-97), which is not ported
         raise NotImplementedError(
             f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
             f"{e_prob_calc} (ROADMAP queue 1: 'models/hmm_blocked.py')")
-    if numerics != "pallas":
+    if numerics == "log" and dtype is not None and dtype != torch.float64:
         raise NotImplementedError(
-            f"numerics {numerics!r} (ROADMAP queue 1: 'The f64 scan tier' / "
-            "'models/hmm_blocked.py'); only the fused kernel tier "
-            "'pallas' is ported")
+            f"numerics 'log' in {dtype} (ROADMAP queue 1: 'float32 scan "
+            "tier'); the scan tier runs float64")
     if block_size:
         raise NotImplementedError(
             "block_size (ROADMAP queue 1: 'models/hmm_blocked.py')")
@@ -152,10 +172,11 @@ def _device(device):
 
 
 def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
-               dtype=torch.float32) -> EMState:
+               dtype=None) -> EMState:
     """Initial EM state with emissions from the initial freqs
     (parse_args.cpp:370-387). gl/freq0/indF0/alpha0: tensors or numpy
-    arrays; everything is moved to `device` in `dtype`.
+    arrays; everything is moved to `device` in `dtype` (None: gl's own,
+    as in the JAX package: float64 for the scan tier).
 
     e_prob_calc == 2: sites >= 1 get LD-conditioned pair emissions
     (parse_args.cpp:373-386) from the corrected pair EM seeded with the
@@ -164,7 +185,9 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
     0's emission, so these stay for the whole run."""
     _refuse(e_prob_calc=e_prob_calc)
     dev = _device(device)
-    gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
+    gl = torch.as_tensor(gl)
+    dtype = gl.dtype if dtype is None else dtype
+    gl = gl.to(device=dev, dtype=dtype)
     freq0 = torch.as_tensor(freq0).to(device=dev, dtype=dtype)
     S, N = gl.shape[0], gl.shape[1]
     e_prob = calc_emission(gl, freq0[:, None])  # [S, N, 2]
@@ -182,7 +205,7 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
     )
 
 
-def in_loop_emission_form(freq_est, numerics="pallas", site_sharded=False):
+def in_loop_emission_form(freq_est, numerics="log", site_sharded=False):
     """Which recompute form ``state.e_prob`` carries AFTER an iteration:
     "linear" = ``log(ops.emissions.emission_probs_linear(...))``, "log" =
     ``ops.emissions.calc_emission``. Whoever rebuilds emissions from
@@ -211,7 +234,7 @@ def em_iteration(
     indF_fixed: bool = False,
     alpha_fixed: bool = False,
     block_size: Optional[int] = None,
-    numerics: str = "pallas",
+    numerics: str = "log",
     n_rep: int = 1,
     prep_slabs=None,
     return_prep: bool = False,
@@ -221,9 +244,15 @@ def em_iteration(
     defer_posteriors: bool = False,
     gl_bf16: bool = False,
 ):
-    """One EM iteration (reference: iter_EM, EM.cpp:139-289) on the fused
-    route: the chain kernels compute the emissions in-kernel from
-    (gl, freq). With freq_est 0 the emissions stay those of the initial
+    """One EM iteration (reference: iter_EM, EM.cpp:139-289).
+
+    numerics "log" (the default): the float64 scan tier, _em_iteration_log
+    (JAX em.py with numerics "log", block_size None); prep_slabs is
+    ignored and the slabs returned under return_prep are None;
+    defer_* and gl_bf16 do not apply.
+
+    numerics "pallas": the fused route, where the chain kernels compute
+    the emissions in-kernel from (gl, freq). With freq_est 0 the emissions stay those of the initial
     freq (state.freq and state.e_prob pass through untouched). With
     freq_est 1 the freq M-step reads the gl slabs and the RAW posterior
     slab of this iteration's E-step: est_maf_slab (macro-stepped) where
@@ -275,7 +304,14 @@ def em_iteration(
     prep_slabs is then the (g0, g2) pair of linear gl planes [S, N] of
     est_maf_rows (freq_est 1; None otherwise) and defer_* do not apply.
     """
-    _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size)
+    _refuse(freq_est, e_prob_calc, n_rep, numerics, block_size,
+            state.indF.dtype)
+    if numerics == "log":
+        st, stats, mem = _em_iteration_log(
+            gl, dist, state, n_rep, freq_est, e_prob_calc, indF_fixed,
+            alpha_fixed, opt_memory)
+        return ((st, stats) + ((None,) if return_prep else ())
+                + ((mem,) if return_opt else ()))
     if n_rep > 1 or e_prob_calc != 1 or freq_est == 2:
         st, stats, slabs, mem = _em_iteration_v1(
             gl, dist, state, n_rep, freq_est, e_prob_calc, indF_fixed,
@@ -420,12 +456,7 @@ def _em_iteration_v1(gl, dist, state, n_rep, freq_est, e_prob_calc,
     R, L = n_rep, n_rep * N
     dtype = gl.dtype
     flat = n_rep > 1
-    if flat and (tuple(state.indF.shape) != (L,)
-                 or tuple(state.freq.shape) != (R, S)):
-        raise ValueError(
-            f"n_rep {R}: expected a flattened state (indF [{L}], freq "
-            f"[{R}, {S}]), got indF {tuple(state.indF.shape)}, freq "
-            f"{tuple(state.freq.shape)} (models/restart.flatten_states)")
+    _check_flat(state, S, N, n_rep)
 
     # ---- E-step: forward-backward posteriors (EM.cpp:147-185)
     bs, nb = hmm_kernels.pick_geom2(S, L)
@@ -476,6 +507,79 @@ def _em_iteration_v1(gl, dist, state, n_rep, freq_est, e_prob_calc,
             opt_mem)
 
 
+def _check_flat(state, S, N, n_rep):
+    """Raise unless an n_rep > 1 state is the flattened one."""
+    R, L = n_rep, n_rep * N
+    if n_rep > 1 and (tuple(state.indF.shape) != (L,)
+                      or tuple(state.freq.shape) != (R, S)):
+        raise ValueError(
+            f"n_rep {R}: expected a flattened state (indF [{L}], freq "
+            f"[{R}, {S}]), got indF {tuple(state.indF.shape)}, freq "
+            f"{tuple(state.freq.shape)} (models/restart.flatten_states)")
+
+
+def _em_iteration_log(gl, dist, state, n_rep, freq_est, e_prob_calc,
+                      indF_fixed, alpha_fixed, opt_memory):
+    """em_iteration on the float64 scan tier (JAX em.py with numerics
+    "log", block_size None); returns (state, stats, opt_memory).
+
+    E-step: hmm.posteriors (log_block_transfer, log_combine, log_sweep) on
+    state.e_prob, then the check_interv snap and fwbw_maxdiff. (F, alpha)
+    M-step: L-BFGS over the columns, every evaluation
+    hmm.loglik_value_and_grad (the same three kernels, the sweep summing
+    the gradient), cold first evaluation as in the JAX package. freq
+    M-step (JAX :572-616): est_maf in log space (maf_log) on the snapped
+    posterior; emissions from calc_emission (e_prob_calc 1) or only site
+    0's (e_prob_calc 0 / 2, EM.cpp:252's gate); freq_est 2 the two-site
+    haplotype EM (_freq_step_haplo); freq_est 0 freezes freq and e_prob.
+
+    n_rep = R > 1: R replicates flattened into the columns (models/
+    restart.py). The chain and the L-BFGS rows are per column, so each
+    replicate gets what it gets alone; replicate r's freq M-step runs
+    maf_log on its own columns of the posterior (read in place) and its
+    emissions are written back into its columns. The JAX package vmaps
+    em_iteration over the replicates instead (restart.py:180-195)."""
+    S, N = gl.shape[0], gl.shape[1]
+    R = n_rep
+    _check_flat(state, S, N, n_rep)
+
+    # ---- E-step: forward-backward posteriors (EM.cpp:147-185)
+    p_raw, ll_f, ll_b = hmm.posteriors(state.e_prob, dist, state.indF,
+                                       state.alpha)
+    p_ibd = check_interv(p_raw)
+    del p_raw
+    fwbw = torch.abs(ll_f - ll_b)
+    fwbw_maxdiff = fwbw.reshape(R, N).amax(1) if R > 1 else torch.max(fwbw)
+
+    # ---- M-step 1: per-individual (F, alpha) (EM.cpp:189-206)
+    indF, alpha, opt_iters, opt_mem = _mstep_indF_alpha(
+        state, indF_fixed, alpha_fixed,
+        lambda F, a: hmm.loglik_value_and_grad(F, a, state.e_prob, dist),
+        opt_memory)
+
+    # ---- M-step 2: per-site freq + emission recompute (EM.cpp:210-272)
+    if freq_est == 0:
+        freq, e_prob = state.freq, state.e_prob
+    elif R > 1:
+        freq = torch.empty_like(state.freq)
+        e_prob = torch.empty_like(state.e_prob)
+        for r in range(R):
+            cols = slice(r * N, (r + 1) * N)
+            freq[r] = est_maf(gl, p_ibd[:, cols])
+            e_prob[:, cols] = calc_emission(gl, freq[r][:, None])
+    elif freq_est == 1:
+        freq = est_maf(gl, p_ibd)
+        if e_prob_calc == 1:
+            e_prob = calc_emission(gl, freq[:, None])
+        else:
+            e_prob = state.e_prob.clone()
+            e_prob[0] = calc_emission(gl[0], freq[0])
+    else:
+        freq, e_prob = _freq_step_haplo(gl, state, p_ibd, e_prob_calc)
+    new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ll_f)
+    return new_state, IterStats(fwbw_maxdiff, opt_iters), opt_mem
+
+
 def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
     """The freq M-step of one run on the emission-slab route; returns
     (freq, e_prob, gl_rows).
@@ -500,6 +604,12 @@ def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
         e_prob = state.e_prob.clone()
         e_prob[0] = calc_emission(gl[0], freq[0])
         return freq, e_prob, gl_rows
+    return _freq_step_haplo(gl, state, p_ibd, e_prob_calc) + (gl_rows,)
+
+
+def _freq_step_haplo(gl, state, p_ibd, e_prob_calc):
+    """freq_est 2's freq M-step (JAX em.py:589-620), shared by the
+    emission-slab route and the scan tier; returns (freq, e_prob)."""
     prior = calc_hwe(state.freq[:, None], p_ibd)  # [S, N, 3] log
     pp = post_prob(gl, prior)
     del prior
@@ -514,7 +624,7 @@ def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
         e_prob[1:] = ld_emissions(hap, gl, freq)
     else:
         e_prob[1:] = calc_emission(gl[1:], freq[1:, None])
-    return freq, e_prob, gl_rows
+    return freq, e_prob
 
 
 def restore_opt_memory(raw, n_cols, dtype, m=None, device="cuda"):
@@ -570,10 +680,10 @@ def run_em(
     """
     from .driver import convergence_loop
 
-    _refuse(opts.freq_est, opts.e_prob_calc, 1, opts.numerics,
-            opts.block_size)
-    dev = _device(device)
     dtype = state.indF.dtype
+    _refuse(opts.freq_est, opts.e_prob_calc, 1, opts.numerics,
+            opts.block_size, dtype)
+    dev = _device(device)
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
     dist = torch.as_tensor(dist).to(device=dev, dtype=dtype)
     state = EMState(*(t.to(dev) for t in state))
@@ -592,8 +702,10 @@ def run_em(
     # rebuild needs the final iteration's PRE-update params (the E-step
     # runs on the entering state), tracked per step below. verbose >= 7
     # dumps per-iteration state from the trace hook: keep both live there.
-    # The emission-slab route (the LD path) reads both: nothing deferred.
-    fused = opts.e_prob_calc == 1 and opts.freq_est != 2
+    # The emission-slab route (the LD path) reads both: nothing deferred;
+    # nor on the scan tier, which threads no slabs either (JAX run_em).
+    fused = (opts.numerics == "pallas" and opts.e_prob_calc == 1
+             and opts.freq_est != 2)
     defer = fused and opts.freq_est == 1 and opts.verbose < 7
     defer_p = fused and opts.verbose < 7
     prev_params = {"v": None}

@@ -1,11 +1,20 @@
-"""Two-state HMM recursions as per-site loops over all individuals.
+"""Two-state HMM recursions: the float64 scan tier and the per-site oracle.
 
-The sequential tier (reference: shared/HMM.cpp:6-125): log-space
-forward / backward / posteriors / analytic gradient as plain Python loops
-over the sites, each step a vectorised op over the N individuals. They
-are the test oracles inside the port (float64 or float32, small shapes
-only); the speed path is models/hmm_kernels.py. ``viterbi`` is on the
-main path and runs as a CUDA kernel for CUDA tensors.
+The scan tier (reference: shared/HMM.cpp:6-125; the JAX package's
+models/hmm.py, lax.scans over the sites) is log-space forward / backward /
+posteriors / analytic gradient on a blocked chain: ``forward_loglik``,
+``posteriors`` and ``loglik_value_and_grad`` run the three kernels of
+csrc/log_chain.cu for CUDA tensors (float64) and their plain versions,
+blocked torch loops in the kernels' order, for CPU tensors:
+
+  log_block_transfer  each block's 2x2 log product       [nb, C, 2, 2]
+  log_combine         block entry / exit vectors, ll_f, ll_b
+  log_sweep           per-site p_ibd, or the gradient's block sums
+
+The per-site loops (``forward``, ``backward``, ``forward_loglik_sites``,
+``posteriors_sites``, ``loglik_value_and_grad_sites``) stay as the test
+oracle (float64 or float32, small shapes only). ``viterbi`` runs as a CUDA
+kernel for CUDA tensors. The fused float32 tier is models/hmm_kernels.py.
 
 Conventions (0-based):
  - e_prob: [S, N, 2]   log emissions, site-major
@@ -61,8 +70,8 @@ def forward(e_prob, dist, F, alpha):
     return fw, logsum2(c0, c1)
 
 
-def forward_loglik(F, alpha, e_prob, dist):
-    """Forward total log-likelihood [N] only."""
+def forward_loglik_sites(F, alpha, e_prob, dist):
+    """Forward total log-likelihood [N] only (per-site oracle)."""
     return forward(e_prob, dist, F, alpha)[1]
 
 
@@ -89,19 +98,18 @@ def backward(e_prob, dist, F, alpha):
     return bw, logsum2(b0 + lq[:, 0], b1 + lq[:, 1])
 
 
-def posteriors(e_prob, dist, F, alpha):
-    """Forward-backward E-step: (p_ibd [S, N], loglik_fw [N],
-    loglik_bw [N]). p_ibd is the state-1 marginal, NOT yet snapped by
-    check_interv (callers apply it; EM.cpp:178-185)."""
+def posteriors_sites(e_prob, dist, F, alpha):
+    """Forward-backward E-step (per-site oracle of ``posteriors``):
+    (p_ibd [S, N], loglik_fw [N], loglik_bw [N])."""
     fw, ll_f = forward(e_prob, dist, F, alpha)
     bw, ll_b = backward(e_prob, dist, F, alpha)
     p_ibd = torch.exp(fw[:, :, 1] + bw[:, :, 1] - ll_f[None, :])
     return p_ibd, ll_f, ll_b
 
 
-def loglik_value_and_grad(F, alpha, e_prob, dist):
+def loglik_value_and_grad_sites(F, alpha, e_prob, dist):
     """Analytic (loglik, dL/dF, dL/dalpha), each [N], via forward-backward
-    and the Fisher identity
+    and the Fisher identity (per-site oracle of ``loglik_value_and_grad``)
 
       dL/dtheta = sum_s sum_{k,l} xi_s(k,l) d(log T_s[k,l])/dtheta
                 + sum_k gamma_init(k) d(log q[k])/dtheta,
@@ -142,6 +150,254 @@ def loglik_value_and_grad(F, alpha, e_prob, dist):
     w0 = T00_0 * eb0[:, 0] + T01_0 * eb0[:, 1]
     w1 = T10_0 * eb0[:, 0] + T11_0 * eb0[:, 1]
     return L, gF + (w1 - w0), ga
+
+
+# ---------------------------------------------------------------------------
+# The scan tier: the blocked log-space chain (csrc/log_chain.cu)
+# ---------------------------------------------------------------------------
+
+# (block, column) lanes the geometry aims for: about one resident lane per
+# thread slot of a 132-SM card at 1024 threads each
+LOG_LANES_TARGET = 132 * 1024
+LOG_MIN_BS = 32  # shortest within-block chain worth a lane
+
+
+def log_geometry(S, C):
+    """(bs, nb) of the blocked chain for S sites and C columns: nb blocks of
+    bs sites, nb * C lanes near LOG_LANES_TARGET, bs at least LOG_MIN_BS
+    (one block below that), every block holding at least one site (the
+    last one the rest)."""
+    nb = max(1, min(S // LOG_MIN_BS, -(-LOG_LANES_TARGET // C)))
+    bs = -(-S // nb)
+    return bs, -(-S // bs)
+
+
+def _log_blocks(e_prob, dist, bs, nb):
+    """The plain versions' padded views: emissions [nb, bs, C, 2] and
+    distances [nb, bs]; a pad site has e = 0 and d = 0, the identity in
+    log space, so it is an exact no-op of every step."""
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    pad = nb * bs - S
+    e = torch.cat([e_prob, e_prob.new_zeros((pad, C, 2))])
+    d = torch.cat([dist, dist.new_zeros(pad)])
+    return e.view(nb, bs, C, 2), d.view(nb, bs)
+
+
+def _log_step(v0, v1, t, e0, e1):
+    """One forward step of the JAX scan (hmm.py:forward) from (v0, v1)."""
+    t00, t01, t10, t11 = t
+    return (logsum2(v0 + t00, v1 + t10) + e0,
+            logsum2(v0 + t01, v1 + t11) + e1)
+
+
+def _log_block_transfer_plain(e_prob, dist, F, alpha, bs, nb):
+    PLAIN_CALLS["log_block_transfer"] += 1
+    e, d = _log_blocks(e_prob, dist, bs, nb)
+    zero = torch.zeros((nb, F.shape[0]), dtype=e.dtype, device=e.device)
+    ninf = torch.full_like(zero, -torch.inf)
+    r00, r01, r10, r11 = zero, ninf, ninf, zero
+    for j in range(bs):
+        t = _log_trans_elems(F, alpha, d[:, j, None])
+        e0, e1 = e[:, j, :, 0], e[:, j, :, 1]
+        r00, r01 = _log_step(r00, r01, t, e0, e1)
+        r10, r11 = _log_step(r10, r11, t, e0, e1)
+    return torch.stack([r00, r01, r10, r11], -1).view(nb, -1, 2, 2)
+
+
+def log_block_transfer(e_prob, dist, F, alpha, bs, nb):
+    """Each block's 2x2 log-semiring product A [nb, C, 2, 2]: row k is the
+    JAX forward recursion over the block's sites started from the unit
+    vector e_k (log: 0 at k, -inf elsewhere). CUDA tensors: float64
+    kernel; CPU tensors: the plain version."""
+    if not e_prob.is_cuda:
+        return _log_block_transfer_plain(e_prob, dist, F, alpha, bs, nb)
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    e_prob, dist, F, alpha = _log_inputs(e_prob, dist, F, alpha)
+    A = torch.empty((nb, C, 2, 2), dtype=torch.float64, device=e_prob.device)
+    rc = cuda_lib.load().ngsf_log_block_transfer(
+        e_prob.data_ptr(), dist.data_ptr(), F.data_ptr(), alpha.data_ptr(),
+        A.data_ptr(), S, C, bs, nb, cuda_lib.stream())
+    cuda_lib.check(rc, "log_block_transfer")
+    LAUNCHES["log_block_transfer"] += 1
+    return A
+
+
+def _log_combine_plain(A, F):
+    PLAIN_CALLS["log_combine"] += 1
+    nb = A.shape[0]
+    lq = log_q(F)
+    fw_in, bw_out = torch.empty_like(A[..., 0]), torch.empty_like(A[..., 0])
+    v0, v1 = lq[:, 0], lq[:, 1]
+    for b in range(nb):
+        fw_in[b, :, 0], fw_in[b, :, 1] = v0, v1
+        a = A[b]
+        v0, v1 = (logsum2(v0 + a[:, 0, 0], v1 + a[:, 1, 0]),
+                  logsum2(v0 + a[:, 0, 1], v1 + a[:, 1, 1]))
+    ll_f = logsum2(v0, v1)
+    w0 = w1 = torch.zeros_like(v0)
+    for b in range(nb - 1, -1, -1):
+        bw_out[b, :, 0], bw_out[b, :, 1] = w0, w1
+        a = A[b]
+        w0, w1 = (logsum2(a[:, 0, 0] + w0, a[:, 0, 1] + w1),
+                  logsum2(a[:, 1, 0] + w0, a[:, 1, 1] + w1))
+    return fw_in, bw_out, ll_f, logsum2(w0 + lq[:, 0], w1 + lq[:, 1])
+
+
+def log_combine(A, F):
+    """The walks over the block products: (fw_in [nb, C, 2], each block's
+    entry vector from log q; bw_out [nb, C, 2], each block's exit vector
+    from 0; ll_f [C]; ll_b [C]). Through block 0 the backward walk is the
+    JAX backward's sentinel step, so ll_b = logsum(bw_{-1} + log q) as
+    there (hmm.py:180-190). CUDA tensors: float64 kernel (a thread a
+    column and direction); CPU tensors: the plain version."""
+    if not A.is_cuda:
+        return _log_combine_plain(A, F)
+    nb, C = A.shape[0], A.shape[1]
+    cuda_lib.require(A, "log_combine.A", torch.float64, (nb, C, 2, 2))
+    F = F.to(torch.float64).contiguous()
+    cuda_lib.require(F, "log_combine.F", torch.float64, (C,))
+    fw_in = torch.empty((nb, C, 2), dtype=torch.float64, device=A.device)
+    bw_out = torch.empty_like(fw_in)
+    ll_f = torch.empty((C,), dtype=torch.float64, device=A.device)
+    ll_b = torch.empty_like(ll_f)
+    rc = cuda_lib.load().ngsf_log_combine(
+        A.data_ptr(), F.data_ptr(), fw_in.data_ptr(), bw_out.data_ptr(),
+        ll_f.data_ptr(), ll_b.data_ptr(), C, nb, cuda_lib.stream())
+    cuda_lib.check(rc, "log_combine")
+    LAUNCHES["log_combine"] += 1
+    return fw_in, bw_out, ll_f, ll_b
+
+
+def _log_sweep_plain(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad):
+    PLAIN_CALLS["log_sweep"] += 1
+    S = e_prob.shape[0]
+    nb = fw_in.shape[0]
+    e, d = _log_blocks(e_prob, dist, bs, nb)
+    v0, v1 = fw_in[..., 0], fw_in[..., 1]
+    fw = []
+    for j in range(bs):
+        v0, v1 = _log_step(v0, v1, _log_trans_elems(F, alpha, d[:, j, None]),
+                           e[:, j, :, 0], e[:, j, :, 1])
+        fw.append((v0, v1))
+    w0, w1 = bw_out[..., 0], bw_out[..., 1]
+    L = ll_f[None, :]
+    p = torch.empty_like(e[..., 0])  # [nb, bs, C]
+    gF = torch.zeros_like(w0)
+    ga = torch.zeros_like(w0)
+    for j in range(bs - 1, -1, -1):
+        x, d_safe, is_break = _decay(alpha, d[:, j, None])  # [nb, C]
+        t00, t01, t10, t11 = _log_trans_elems(F, alpha, d[:, j, None])
+        e0, e1 = e[:, j, :, 0], e[:, j, :, 1]
+        if not grad:
+            p[:, j] = torch.exp(fw[j][1] + w1 - L)
+        else:
+            f0, f1 = fw[j - 1] if j else (fw_in[..., 0], fw_in[..., 1])
+            b0, b1 = e0 + w0 - L, e1 + w1 - L
+            u00, u01 = torch.exp(f0 + b0), torch.exp(f0 + b1)
+            u10, u11 = torch.exp(f1 + b0), torch.exp(f1 + b1)
+            one_m = 1.0 - x
+            dx = torch.where(is_break, torch.zeros_like(x), d_safe * x)
+            gF = gF + one_m * (-u00 + u01 - u10 + u11)
+            ga = ga + dx * (F * (u01 - u00) + (1.0 - F) * (u10 - u11))
+            if j == 0:  # site 0 (block 0): the initial distribution's term
+                eb0, eb1 = torch.exp(b0[0]), torch.exp(b1[0])
+                om, x0 = one_m[0], x[0]
+                q0 = (om * (1.0 - F) + x0) * eb0 + (om * F) * eb1
+                q1 = (om * (1.0 - F)) * eb0 + (om * F + x0) * eb1
+                gF[0] = gF[0] + (q1 - q0)
+        w0, w1 = (logsum2(t00 + e0 + w0, t01 + e1 + w1),
+                  logsum2(t10 + e0 + w0, t11 + e1 + w1))
+    if grad:
+        return torch.stack([gF, ga], -1)
+    return p.view(nb * bs, -1)[:S]
+
+
+def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
+    """Each block rerun forward from its entry vector and backward from its
+    exit vector. grad=False: p_ibd [S, C] = exp(fw1 + bw1 - ll_f) (not
+    snapped); grad=True: the Fisher-identity sums of dL/dF and dL/dalpha
+    over each block, [nb, C, 2] (block 0 with the initial-distribution
+    term; loglik_value_and_grad_sites' docstring). CUDA tensors: float64
+    kernel (the grad call takes a [S, C, 2] scratch for the forward
+    values); CPU tensors: the plain version."""
+    if not e_prob.is_cuda:
+        return _log_sweep_plain(e_prob, dist, F, alpha, fw_in, bw_out, ll_f,
+                                bs, grad)
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    nb = fw_in.shape[0]
+    e_prob, dist, F, alpha = _log_inputs(e_prob, dist, F, alpha)
+    for name, t, shape in (("fw_in", fw_in, (nb, C, 2)),
+                           ("bw_out", bw_out, (nb, C, 2)),
+                           ("ll_f", ll_f, (C,))):
+        cuda_lib.require(t, f"log_sweep.{name}", torch.float64, shape)
+    dev = e_prob.device
+    p = fws = gpart = None
+    if grad:
+        fws = torch.empty((S, C, 2), dtype=torch.float64, device=dev)
+        gpart = torch.empty((nb, C, 2), dtype=torch.float64, device=dev)
+    else:
+        p = torch.empty((S, C), dtype=torch.float64, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = cuda_lib.load().ngsf_log_sweep(
+        e_prob.data_ptr(), dist.data_ptr(), F.data_ptr(), alpha.data_ptr(),
+        fw_in.data_ptr(), bw_out.data_ptr(), ll_f.data_ptr(), ptr(p),
+        ptr(fws), ptr(gpart), S, C, bs, nb, int(grad), cuda_lib.stream())
+    cuda_lib.check(rc, "log_sweep")
+    LAUNCHES["log_sweep"] += 1
+    return gpart if grad else p
+
+
+def _log_inputs(e_prob, dist, F, alpha):
+    """The kernels' float64 inputs, checked (emissions [S, C, 2])."""
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    cuda_lib.require(e_prob, "log chain e_prob", torch.float64, (S, C, 2))
+    dev = e_prob.device
+    dist = torch.as_tensor(dist, device=dev).to(torch.float64).contiguous()
+    F = F.to(torch.float64).contiguous()
+    alpha = alpha.to(torch.float64).contiguous()
+    cuda_lib.require(dist, "log chain dist", torch.float64, (S,))
+    cuda_lib.require(F, "log chain F", torch.float64, (C,))
+    cuda_lib.require(alpha, "log chain alpha", torch.float64, (C,))
+    if e_prob.data_ptr() % 16:  # the kernels load a site's pair as double2
+        e_prob = e_prob.clone()
+    return e_prob, dist, F, alpha
+
+
+def forward_loglik(F, alpha, e_prob, dist):
+    """Forward total log-likelihood [C] (JAX hmm.forward_loglik): the block
+    products and the forward walk, no per-site values."""
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    bs, nb = log_geometry(S, C)
+    A = log_block_transfer(e_prob, dist, F, alpha, bs, nb)
+    return log_combine(A, F)[2]
+
+
+def posteriors(e_prob, dist, F, alpha):
+    """Forward-backward E-step (JAX hmm.posteriors): (p_ibd [S, C],
+    loglik_fw [C], loglik_bw [C]). p_ibd is the state-1 marginal, NOT yet
+    snapped by check_interv (callers apply it; EM.cpp:178-185)."""
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    bs, nb = log_geometry(S, C)
+    A = log_block_transfer(e_prob, dist, F, alpha, bs, nb)
+    fw_in, bw_out, ll_f, ll_b = log_combine(A, F)
+    del A
+    p = log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs)
+    return p, ll_f, ll_b
+
+
+def loglik_value_and_grad(F, alpha, e_prob, dist):
+    """Analytic (loglik, dL/dF, dL/dalpha), each [C], by the Fisher
+    identity (JAX hmm.loglik_value_and_grad; the terms in
+    loglik_value_and_grad_sites' docstring), summed a block at a time by
+    log_sweep and then over the blocks."""
+    S, C = e_prob.shape[0], e_prob.shape[1]
+    bs, nb = log_geometry(S, C)
+    A = log_block_transfer(e_prob, dist, F, alpha, bs, nb)
+    fw_in, bw_out, ll_f, _ = log_combine(A, F)
+    del A
+    g = log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs,
+                  grad=True).sum(0)
+    return ll_f, g[:, 0], g[:, 1]
 
 
 # ---------------------------------------------------------------------------

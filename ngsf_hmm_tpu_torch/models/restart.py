@@ -6,7 +6,10 @@ with the highest first-line log-likelihood of ``.indF``. Here the R
 replicates are FLATTENED into the column axis of one EM iteration (JAX
 models/restart.py, its pallas path): column r * N + i is (replicate r,
 individual i), the chain kernels and the batched L-BFGS run once over
-all R * N columns, and only the freq M-step segments by replicate. Each
+all R * N columns, and only the freq M-step segments by replicate. That
+holds on both tiers: the float64 scan tier (numerics "log", where the JAX
+package vmaps its em_iteration over the replicates instead) and the fused
+float32 one (numerics "pallas", the emission-slab kernels). Each
 replicate keeps its own convergence bookkeeping: one that has converged
 is frozen while the stragglers finish, as independent runs would stop at
 their own pace.
@@ -30,16 +33,18 @@ from .hmm import viterbi
 
 def stack_restart_states(gl, n_rep, seed, indF_spec="r", freq_spec="r",
                          alpha_literal=None, freq_est=1, e_prob_calc=1,
-                         device="cuda", dtype=torch.float32) -> EMState:
+                         device="cuda", dtype=None) -> EMState:
     """R independently seeded initial EM states, stacked on axis 0 (JAX
     restart.stack_restart_states).
 
     indF_spec/freq_spec follow the CLI's init strings
     (parse_args.cpp:248-363); replicate r resolves its random draws with
     GslTaus(seed + r). Returns an EMState whose fields have a leading [R]
-    axis, on `device` in `dtype`."""
+    axis, on `device` in `dtype` (None: gl's own)."""
     dev = _device(device)
-    gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
+    gl = torch.as_tensor(gl)
+    dtype = gl.dtype if dtype is None else dtype
+    gl = gl.to(device=dev, dtype=dtype)
     S, N = gl.shape[0], gl.shape[1]
     states = []
     for r in range(n_rep):
@@ -137,10 +142,10 @@ def run_em_restarts(gl, dist, states: EMState, opts: EMOptions,
                          f"{R}: one replicate is models/em.run_em")
     # (gl_bf16 changes nothing here: the flattened route reads emission
     # slabs, and its freq M-step float32 gl slabs, as in the JAX package)
-    _refuse(opts.freq_est, opts.e_prob_calc, R, opts.numerics,
-            opts.block_size)
-    dev = _device(device)
     dtype = states.indF.dtype
+    _refuse(opts.freq_est, opts.e_prob_calc, R, opts.numerics,
+            opts.block_size, dtype)
+    dev = _device(device)
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
     dist = torch.as_tensor(dist).to(device=dev, dtype=dtype)
     flat = flatten_states(EMState(*(t.to(dev) for t in states)))
@@ -156,6 +161,7 @@ def run_em_restarts(gl, dist, states: EMState, opts: EMOptions,
             e_prob_calc=opts.e_prob_calc,
             indF_fixed=opts.indF_fixed,
             alpha_fixed=opts.alpha_fixed,
+            numerics=opts.numerics,
             n_rep=R,
             prep_slabs=hold["slabs"],
             return_prep=True,

@@ -16,15 +16,21 @@ advances the damped recursion through that round's virtual window on the
 per-site linearised model -- scalar site math, no [.., N] work. Windows
 grow across rounds because the damped ~1/k iterate slows down.
 
-This module is plain vectorised torch. It serves ``--freq e``, the tests
-and the CPU; inside the EM loop on the card the freq M-step runs the
-kernels of ops/maf_kernels.py. The loop condition ``any(active)`` is one
+The exact log-space fixed point (``linear=False``, ``macro=False``: the
+scan tier's freq M-step, ``--freq e``, the LD path's site 0) runs the
+kernel of csrc/maf_log.cu for CUDA tensors (float64, or float32 on the
+fused tier) and the plain vectorised torch below for CPU tensors. The
+other modes are plain torch: the tests' references (on the card too);
+inside the fused tier's EM loop the freq M-step runs the kernels of
+ops/maf_kernels.py. The plain loop's condition ``any(active)`` is one
 device-to-host read a pass.
 """
 
 import torch
 
+from ..utils import cuda_lib
 from ..utils.constants import EPSILON, ITER_MAX
+from ..utils.cuda_lib import LAUNCHES, PLAIN_CALLS
 from .hwe import calc_hwe, miss_data, post_prob
 
 MACRO_K0 = 8  # real full-width passes before linearised macro-stepping
@@ -92,10 +98,23 @@ def est_maf(gl_s, indF, ignore_miss_data=False, axis_name=None, linear=False,
     The loop-exit test matches the reference's post-increment condition
     ``while(|prev-freq| > EPS && iters++ < 100)``: the body runs at least
     once and at most ITER_MAX + 1 times.
+
+    Log space without macro on CUDA tensors: maf_log (csrc/maf_log.cu).
     """
     if axis_name is not None:
         raise NotImplementedError(
             "est_maf over a mesh axis (ROADMAP queue 1: 'parallel/')")
+    if not linear and not macro:
+        if gl_s.is_cuda:
+            return maf_log(gl_s, indF, ignore_miss_data)
+        PLAIN_CALLS["maf_log"] += 1
+    return _est_maf_plain(gl_s, indF, ignore_miss_data, linear, macro)
+
+
+def _est_maf_plain(gl_s, indF, ignore_miss_data=False, linear=False,
+                   macro=False):
+    """est_maf's plain version (any device): the masked fixed point over
+    every site at once in vectorised torch."""
     lead = gl_s.shape[:-2]
     N = gl_s.shape[-2]
     dtype, dev = gl_s.dtype, gl_s.device
@@ -170,3 +189,37 @@ def est_maf(gl_s, indF, ignore_miss_data=False, axis_name=None, linear=False,
             df = st[0] - f0
             st = _advance(st, cn + dcn * df, T_w + cdv + dcdv * df)
     return st[0]
+
+
+def maf_log(gl_s, indF, ignore_miss_data=False):
+    """est_maf(gl_s, indF, ignore_miss_data) in log space without macro,
+    on the card (csrc/maf_log.cu, one warp a site). gl_s [.., N, 3] (made
+    contiguous); indF [.., N] (a [S, N] view whose rows are strided, as a
+    replicate's columns of a flattened posterior, is read in place), or
+    None for F = 0. float64 or float32, both of one dtype. Returns freq
+    [..]."""
+    lead, N = gl_s.shape[:-2], gl_s.shape[-2]
+    dt, dev = gl_s.dtype, gl_s.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"maf_log: float32 or float64 gl, got {dt}")
+    gl2 = gl_s.reshape(-1, N, 3).contiguous()
+    S = gl2.shape[0]
+    cuda_lib.require(gl2, "maf_log.gl", dt, (S, N, 3))
+    F = (torch.zeros((S, N), dtype=dt, device=dev) if indF is None
+         else indF.to(dt))
+    if F.dim() != 2:
+        F = F.reshape(S, N)
+    if F.stride(1) != 1:
+        F = F.contiguous()
+    if not F.is_cuda or tuple(F.shape) != (S, N) or F.dtype != dt:
+        raise ValueError(f"maf_log: indF must be a CUDA {dt} [{S}, {N}] "
+                         f"tensor, got {F.dtype} {tuple(F.shape)} on "
+                         f"{F.device}")
+    out = torch.empty((S,), dtype=dt, device=dev)
+    lib = cuda_lib.load()
+    fn = lib.ngsf_maf_log_f64 if dt == torch.float64 else lib.ngsf_maf_log_f32
+    rc = fn(gl2.data_ptr(), F.data_ptr(), out.data_ptr(), S, N, F.stride(0),
+            int(bool(ignore_miss_data)), cuda_lib.stream())
+    cuda_lib.check(rc, "maf_log")
+    LAUNCHES["maf_log"] += 1
+    return out.reshape(lead)

@@ -30,7 +30,9 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # The four chain-kernel sources each export three instantiations of one
 # template: the gl-layout kernel on float32 and on bfloat16 ("_bf16") gl
 # slabs, and the emission-slab ("_v1") kernel. maf_state_grad, maf_sums_grad
-# and maf_macro export a float32 and a bfloat16 gl instantiation.
+# and maf_macro export a float32 and a bfloat16 gl instantiation. log_chain
+# (three float64 kernels) and maf_log (float64 and float32) serve the scan
+# tier.
 SOURCES = (
     "block_transfer.cu",
     "block_transfer_grad.cu",
@@ -43,9 +45,11 @@ SOURCES = (
     "maf_window.cu",
     "maf_exact.cu",
     "maf_macro.cu",
+    "log_chain.cu",
+    "maf_log.cu",
 )
-HEADERS = ("cp_async.cuh", "gl_load.cuh", "hmm_common.cuh", "maf_common.cuh",
-           "stream_tiles.cuh", "transfer_stream.cuh")
+HEADERS = ("cp_async.cuh", "gl_load.cuh", "hmm_common.cuh", "log_common.cuh",
+           "maf_common.cuh", "stream_tiles.cuh", "transfer_stream.cuh")
 # chunks of one CTA of the two-level combine: csrc/combine_blocks.cu is
 # built with it (CB_MAXC), models/hmm_kernels.py sizes its chunks by it
 COMBINE_MAX_CHUNKS = 128
@@ -81,6 +85,11 @@ _SIGNATURES = {
     "ngsf_maf_window": [_P] * 3 + [_L, _I, _I, _P],
     "ngsf_maf_exact": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
+    "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
+    "ngsf_log_combine": [_P] * 6 + [_I] * 2 + [_P],
+    "ngsf_log_sweep": [_P] * 10 + [_I] * 5 + [_P],
+    "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L, _I, _P],
+    "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L, _I, _P],
 }
 # the bfloat16 gl exports take the same arguments as their float32 ones
 _SIGNATURES.update({

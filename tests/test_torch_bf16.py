@@ -163,7 +163,8 @@ def test_em_iteration_gl_bf16_matches_jax():
     before = dict(PLAIN_CALLS)
     st, stats, slabs = t_em.em_iteration(
         torch.as_tensor(np.log(gl)), torch.as_tensor(dist), st_t,
-        indF_fixed=True, alpha_fixed=True, gl_bf16=True, return_prep=True)
+        numerics="pallas", indF_fixed=True, alpha_fixed=True, gl_bf16=True,
+        return_prep=True)
     assert float(stats.fwbw_maxdiff) < 1e-3
     assert len(slabs) == 3 and slabs[0].dtype == slabs[1].dtype == bf16
     observed("em_iteration gl_bf16 freq", st.freq, sj.freq)
@@ -189,7 +190,8 @@ def test_run_em_bf16_close_to_float32():
                      np.linspace(0.02, 0.2, N))
     res = {}
     for b in (False, True):
-        opts = t_em.EMOptions(min_iters=2, max_iters=3, verbose=0,
+        opts = t_em.EMOptions(numerics="pallas", min_iters=2, max_iters=3,
+                              verbose=0,
                               gl_bf16=b)
         res[b] = t_em.run_em(np.log(gl), dist, st_t, opts, device="cpu")
     assert res[True].n_iters == res[False].n_iters == 3
@@ -214,8 +216,9 @@ def test_exact_route_reads_float32_gl():
     gl_t, dist_t = torch.as_tensor(np.log(gl)), torch.as_tensor(dist)
     before = dict(PLAIN_CALLS)
     st, _, slabs = t_em.em_iteration(
-        gl_t, dist_t, st_t, indF_fixed=True, alpha_fixed=True,
-        gl_bf16=True, return_prep=True, defer_posteriors=True)
+        gl_t, dist_t, st_t, numerics="pallas", indF_fixed=True,
+        alpha_fixed=True, gl_bf16=True, return_prep=True,
+        defer_posteriors=True)
     assert PLAIN_CALLS["maf_exact"] == before.get("maf_exact", 0) + 1
     assert PLAIN_CALLS["fw_post_bf16"] == before.get("fw_post_bf16", 0) + 1
     p32 = hk.prepare_gl_inputs(torch.exp(gl_t), dist_t)
@@ -229,8 +232,8 @@ def test_exact_route_reads_float32_gl():
     assert torch.equal(st.freq, mk.est_maf_exact(p32, slab))
     # a threaded iteration keeps all five
     st2, _, slabs2 = t_em.em_iteration(
-        gl_t, dist_t, st, indF_fixed=True, alpha_fixed=True, gl_bf16=True,
-        prep_slabs=slabs, return_prep=True)
+        gl_t, dist_t, st, numerics="pallas", indF_fixed=True,
+        alpha_fixed=True, gl_bf16=True, prep_slabs=slabs, return_prep=True)
     assert all(a is b for a, b in zip(slabs, slabs2))
     assert torch.isfinite(st2.freq).all()
 
@@ -269,6 +272,7 @@ def test_cli_gl_bf16_on_cpu(tmp_path):
     base = ["--geno", str(geno), "--pos", str(pos), "--n_ind", str(N),
             "--n_sites", str(S), "--freq", "e", "--indF", "0.1-0.05",
             "--min_iters", "2", "--max_iters", "3", "--device", "cpu",
+            "--dtype", "float32", "--kernel", "pallas",
             "--out", str(tmp_path / "run")]
     ok = _run(base + ["--gl_bf16", "1"], module=True)
     assert ok.returncode == 0, ok.stderr

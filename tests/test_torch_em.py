@@ -46,7 +46,8 @@ def runs():
             j_em.EMOptions(numerics="pallas", freq_est=0, **LOOP))
     st_t = convert.state_from_jax(arrays, device="cpu")
     res_t = t_em.run_em(gl, dist.astype(np.float32), st_t,
-                        t_em.EMOptions(freq_est=0, **LOOP), device="cpu")
+                        t_em.EMOptions(numerics="pallas", freq_est=0,
+                                       **LOOP), device="cpu")
     return dict(gl=gl, dist=dist, arrays=arrays, jax=res_j, port=res_t,
                 st_t=st_t)
 
@@ -102,7 +103,8 @@ def test_run_em_invariants_and_memory(runs):
     # one more warm iteration from the carried memory runs
     out = t_em.em_iteration(
         torch.as_tensor(runs["gl"]), torch.as_tensor(runs["dist"]).float(),
-        rt.state, freq_est=0, opt_memory=back, return_opt=True)
+        rt.state, numerics="pallas", freq_est=0, opt_memory=back,
+        return_opt=True)
     assert torch.isfinite(out[0].ind_lkl).all()
     assert float(out[1].fwbw_maxdiff) < 1e-3
 
@@ -111,18 +113,23 @@ def test_run_em_invariants_and_memory(runs):
     dict(numerics="log"), dict(numerics="linear"), dict(block_size="auto"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_options_raise(runs, kw):
+    # pinned to the fused tier; numerics "log" (the scan tier) runs float64
+    # only, so this float32 state is refused there
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_em.run_em(runs["gl"], runs["dist"], runs["st_t"],
-                    t_em.EMOptions(**LOOP, **kw), device="cpu")
+                    t_em.EMOptions(**{**LOOP, "numerics": "pallas", **kw}),
+                    device="cpu")
 
 
 def test_unsupported_iteration_arguments_raise(runs):
     gl = torch.as_tensor(runs["gl"])
     dist = torch.as_tensor(runs["dist"]).float()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2, freq_est=2)
+        t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2, freq_est=2,
+                          numerics="pallas")
     with pytest.raises(ValueError, match="flattened state"):
-        t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2)
+        t_em.em_iteration(gl, dist, runs["st_t"], n_rep=2,
+                          numerics="pallas")
     # e_prob_calc 2 runs: site 0 keeps the plain emission, the others
     # carry the LD pair emissions (against JAX: tests/test_torch_haplo.py)
     a = runs["arrays"]
@@ -153,7 +160,8 @@ def test_ld_modes_run(runs, kw):
     st0 = t_em.init_state(runs["gl"], a["freq"], a["indF"], a["alpha"],
                           e_prob_calc=ep, device="cpu")
     res = t_em.run_em(runs["gl"], runs["dist"], st0,
-                      t_em.EMOptions(**LOOP, **kw), device="cpu")
+                      t_em.EMOptions(numerics="pallas", **LOOP, **kw),
+                      device="cpu")
     st = res.state
     assert res.n_iters == 3 and np.all(np.isfinite(res.lkl_history))
     assert res.path.shape == (S, N) and np.isin(res.path, (0, 1)).all()

@@ -51,7 +51,9 @@ def runs():
             jnp.asarray(gl), f32(dist), st_j,
             j_em.EMOptions(numerics="pallas", freq_est=1, **LOOP))
     st_t = convert.state_from_jax(arrays, device="cpu")
-    res_t = t_em.run_em(gl, dist, st_t, t_em.EMOptions(**LOOP), device="cpu")
+    res_t = t_em.run_em(gl, dist, st_t,
+                        t_em.EMOptions(numerics="pallas", **LOOP),
+                        device="cpu")
     return dict(gl=gl, dist=dist, arrays=arrays, jax1=res_j, port1=res_t,
                 st_t=st_t)
 
@@ -96,7 +98,9 @@ def test_deferred_state_equals_live_state(runs):
     final states are equal bit for bit on the exact route: the rebuilt
     p_ibd is the one the undeferred loop carries."""
     live = t_em.run_em(runs["gl"], runs["dist"],
-                       runs["st_t"], t_em.EMOptions(**{**LOOP, "verbose": 7}),
+                       runs["st_t"],
+                       t_em.EMOptions(**{**LOOP, "verbose": 7,
+                                         "numerics": "pallas"}),
                        device="cpu")
     lazy = runs["port1"]
     assert live.n_iters == lazy.n_iters
@@ -128,7 +132,8 @@ def test_cli_estimates_freq_on_cpu(tmp_path, flags):
     ok = _run(["--geno", str(geno), "--pos", str(pos), "--n_ind", str(N),
                "--n_sites", str(S), "--indF", "0.1-0.05", "--min_iters", "2",
                "--max_iters", "3", "--out", str(tmp_path / "run"),
-               "--device", "cpu"] + flags, module=True)
+               "--device", "cpu", "--dtype", "float32", "--kernel",
+               "pallas"] + flags, module=True)
     assert ok.returncode == 0, ok.stderr
     assert "Final logLkl" in ok.stdout
     assert "Estimating allele frequencies" in ok.stdout

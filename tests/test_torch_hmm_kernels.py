@@ -161,12 +161,13 @@ def test_candidate_batch_and_sequential_tier(case):
     ll_b = hk.forward_loglik_fused(Fs, As, prep, fc)
     e64, d64 = _t(case["e"], torch.float64), _t(case["dist"], torch.float64)
     for k in range(3):
-        ll_s = t_hmm.forward_loglik(Fs[k].double(), As[k].double(), e64, d64)
+        ll_s = t_hmm.forward_loglik_sites(Fs[k].double(), As[k].double(),
+                                          e64, d64)
         np.testing.assert_allclose(ll_b[k].numpy(), ll_s.numpy(),
                                    rtol=LL_RTOL)
     F64, a64 = F.double(), a.double()
-    p, lf, lb = t_hmm.posteriors(e64, d64, F64, a64)
-    L, gF, ga = t_hmm.loglik_value_and_grad(F64, a64, e64, d64)
+    p, lf, lb = t_hmm.posteriors_sites(e64, d64, F64, a64)
+    L, gF, ga = t_hmm.loglik_value_and_grad_sites(F64, a64, e64, d64)
     Fj, aj = jnp.asarray(F64.numpy()), jnp.asarray(a64.numpy())
     pj, lfj, lbj = j_hmm.posteriors(jnp.asarray(case["e"]),
                                     jnp.asarray(case["dist"]), Fj, aj)

@@ -72,7 +72,8 @@ def test_em_iteration_ld_matches_jax(monkeypatch):
     PLAIN_CALLS.clear()
     st_t = convert.state_from_jax(arrays, device="cpu")
     s, stats = t_em.em_iteration(torch.as_tensor(gl), torch.as_tensor(dist),
-                                 st_t, freq_est=1, e_prob_calc=2)
+                                 st_t, freq_est=1, e_prob_calc=2,
+                                 numerics="pallas")
     assert {"block_transfer_v1", "bw_sites_v1", "fw_post_v1",
             "block_transfer_grad_v1", "combine_blocks",
             "maf_macro"} <= set(PLAIN_CALLS)
@@ -121,7 +122,8 @@ def test_run_em_freq_est2_e_prob2_matches_jax():
                                     **loop))
     st_t = t_em.init_state(gl, np.full(S, 0.2), np.full(N, 0.3),
                            np.full(N, 0.05), e_prob_calc=2, device="cpu")
-    rt = t_em.run_em(gl, dist, st_t, t_em.EMOptions(**loop), device="cpu")
+    rt = t_em.run_em(gl, dist, st_t,
+                     t_em.EMOptions(numerics="pallas", **loop), device="cpu")
     assert rt.n_iters == rj.n_iters == 3
     observed("LD run_em freq", rt.state.freq, np.asarray(rj.state.freq))
     observed("LD run_em tot_lkl", rt.tot_lkl, rj.tot_lkl)
@@ -152,7 +154,8 @@ def test_cli_ld_path_on_cpu(tmp_path):
     args = ("--geno sim.glf.gz --loglkl --pos sim.pos.gz --n_ind 4 "
             "--n_sites 200 --freq e --indF 0.3,0.05 --freq_est 2 "
             "--e_prob 2 --min_iters 2 --max_iters 6 --min_epsilon 1e-3 "
-            "--device cpu --out ld").split()
+            "--device cpu --dtype float32 --kernel pallas "
+            "--out ld").split()
     cwd = os.getcwd()
     out, err = io.StringIO(), io.StringIO()
     try:

@@ -290,7 +290,8 @@ def test_em_iteration_slab_route_matches_jax():
                                   alpha_fixed=True)
     st_t = convert.state_from_jax(arrays, device="cpu")
     gl_t, dist_t = torch.as_tensor(gl), torch.as_tensor(dist)
-    fixed = dict(freq_est=1, indF_fixed=True, alpha_fixed=True)
+    fixed = dict(freq_est=1, indF_fixed=True, alpha_fixed=True,
+                 numerics="pallas")
     st, stats = t_em.em_iteration(gl_t, dist_t, st_t, **fixed)
     assert float(stats.fwbw_maxdiff) < 1e-3 and stats.opt_iters == 0
     observed("em_iteration slab route freq", st.freq, sj.freq)

@@ -143,14 +143,16 @@ def test_cuda_without_a_card_raises(arrays):
     st = t_em.init_state(a["gl"], a["freq"], a["indF"], a["alpha"],
                          device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        t_em.run_em(a["gl"], np.ones(50), st, t_em.EMOptions())
+        t_em.run_em(a["gl"], np.ones(50), st,
+                    t_em.EMOptions(numerics="pallas"))
     from ngsf_hmm_tpu_torch.models import restart
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         restart.stack_restart_states(a["gl"], 2, 5)
     sts = restart.stack_restart_states(a["gl"], 2, 5, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        restart.run_em_restarts(a["gl"], np.ones(50), sts, t_em.EMOptions())
+        restart.run_em_restarts(a["gl"], np.ones(50), sts,
+                                t_em.EMOptions(numerics="pallas"))
 
 
 def test_cli_end_to_end_on_cpu(arrays, tmp_path):
@@ -164,6 +166,7 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
     base = ["--geno", str(geno), "--pos", str(pos), "--n_ind", str(N),
             "--n_sites", str(S), "--freq", "0.2", "--indF", "0.1-0.05",
             "--min_iters", "2", "--max_iters", "3",
+            "--dtype", "float32", "--kernel", "pallas",
             "--out", str(tmp_path / "run")]
     ok = _run(base + ["--freq_est", "0", "--device", "cpu"], module=True)
     assert ok.returncode == 0, ok.stderr
@@ -187,12 +190,12 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
     # refused
     ["--n_rep", "2", "--freq_est", "2"],
     ["--freq_est", "0", "--mesh", "ind=2"],
-    ["--freq_est", "0", "--kernel", "scan"],
+    ["--freq_est", "0", "--kernel", "linear"],
     # replicates run; with a checkpoint they stay refused
     ["--freq_est", "0", "--checkpoint", "ck", "--n_rep", "2"],
     ["--freq_est", "0", "--opt", "compat"],
     ["--freq_est", "0", "--stream_chunk", "10"],
-    ["--freq_est", "0", "--dtype", "float64"],
+    ["--freq_est", "0", "--kernel", "blocked"],
     ["--n_rep", "2", "--e_prob", "2"],
 ], ids=lambda e: "".join(e[-2:]).lstrip("-"))
 def test_cli_refuses_unported_flags(extra, capsys):

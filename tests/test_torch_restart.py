@@ -77,7 +77,7 @@ def runs(sim):
     arrays = {k: np.array(getattr(states_j, k))
               for k in convert.STATE_FIELDS}
     states_t = convert.state_from_jax(arrays, device="cpu")
-    opts = t_em.EMOptions(verbose=0, **LOOP)
+    opts = t_em.EMOptions(numerics="pallas", verbose=0, **LOOP)
     r_t = t_restart.run_em_restarts(gl, dist, states_t, opts, device="cpu")
     return dict(gl=gl, dist=dist, arrays=arrays, jax=r_j, port=r_t,
                 opts=opts)
@@ -157,7 +157,7 @@ def test_flat_state_conversions(runs):
         convert.opt_memory_to_jax(best_mem), 4, device="cpu") is not None
     _, _, mem = t_em.em_iteration(
         torch.as_tensor(runs["gl"]), torch.as_tensor(runs["dist"]), flat,
-        n_rep=R, return_opt=True)
+        n_rep=R, numerics="pallas", return_opt=True)
     assert mem[0].shape == (MVAL, R * 4, 2) and mem[3].shape == (R * 4,)
     host = convert.opt_memory_to_jax(mem)
     again = convert.opt_memory_from_jax(host, R * 4, device="cpu")
@@ -188,7 +188,7 @@ def test_flat_em_iteration_matches_jax():
                                     flat_j, numerics="linear", block_size=32,
                                     **fixed)
     st, stats = t_em.em_iteration(torch.as_tensor(gl), torch.as_tensor(dist),
-                                  flat_t, **fixed)
+                                  flat_t, numerics="pallas", **fixed)
     assert st.freq.shape == (n_rep, S) and stats.fwbw_maxdiff.shape == (2,)
     assert float(stats.fwbw_maxdiff.max()) < 1e-3 and stats.opt_iters == 0
     observed("flattened em_iteration freq", st.freq, sj.freq)
@@ -205,7 +205,8 @@ def test_flat_em_iteration_matches_jax():
 
 
 def test_restart_cli_on_cpu(tmp_path):
-    """--n_rep 3 --device cpu through the port's CLI (as
+    """--n_rep 3 --device cpu through the port's CLI on its fused tier
+    (--dtype float32 --kernel pallas; as
     tests/test_restart.py::test_restart_cli_flag): the best replicate's
     three files, the .indF header its log-likelihood; stdout line for line
     the JAX CLI's (its default tier) on the same inputs and flags, numbers
@@ -224,7 +225,8 @@ def test_restart_cli_on_cpu(tmp_path):
     try:
         os.chdir(tmp_path)
         with contextlib.redirect_stdout(buf):
-            rc = main(args)
+            # the port on its fused tier (the JAX CLI below on its default)
+            rc = main(args + ["--dtype", "float32", "--kernel", "pallas"])
     finally:
         os.chdir(cwd)
     assert rc == 0
