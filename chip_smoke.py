@@ -12,6 +12,8 @@ needs one CUDA device and nvcc. It
      cell and the cells' issue floor, for maf_exact and maf_macro the SASS
      of a pass, a gradient round and a window step and their issue floor,
      for maf_window the SASS of a step and its issue floor (probe_build),
+     and reads the float64 operations of CUDA's exp and log from their
+     SASS, which the scan tier's bounds count (probe_transcendentals),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -61,8 +63,11 @@ needs one CUDA device and nvcc. It
      forced (init_logits, final_state) and traceback blocks of 256, 1 and
      77 sites; the float64 scan tier's kernels (log_block_transfer,
      log_combine, log_sweep in both modes, maf_log, also on a replicate's
-     strided columns and in float32) at the ragged check shape and at the
-     scan path's shape, and at 2,003 x 33 (a site at distance 0) the
+     strided columns and in float32) at the ragged check shape, at the
+     scan path's shape and at the scan_restart path's (its replicates'
+     emissions in 2,000 columns, the chain's own geometry there, maf_log
+     on a replicate's strided columns), and at 2,003 x 33 (a site at
+     distance 0) the
      chain functions against the per-site oracle loops and float64
      Viterbi against its plain version,
   4. drives nine paths, each with the launch counts set to 0 just before
@@ -105,11 +110,14 @@ needs one CUDA device and nvcc. It
 and Viterbi IBD share to another tree's log of the same run (the parent's,
 in one call). --probes runs only the measurements and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
---maf-anchor OUT [--tree DIR] runs only the float64 anchor and the main
-(without the writers), bf16, exact, ld and restart paths (of DIR's
-package), writes their readings and final freqs under OUT and exits 4;
---against-maf OUT then sets this run's anchor beside them and holds those
-paths' final freqs to them (printing whether they are bit-equal).
+--maf-anchor OUT [--tree DIR] runs only the float64 anchor, the main
+(without the writers), bf16, exact, ld, ld2 and restart paths, the fused
+tier's --freq e estimate at the main shape and its CLI runs with --freq e
+(one run, the LD path) (of DIR's package), writes their readings, final
+freqs and CLI outputs under OUT and exits 4; --against-maf OUT, in a full
+run or beside --maf-anchor, then sets this run's anchor beside them and
+holds those paths' final freqs to them (printing whether they are
+bit-equal; beside --maf-anchor also the CLI outputs).
 
 The fused-tier paths and CLI runs name numerics "pallas" / --dtype float32
 --kernel pallas, the scan tier being the default. Any failure exits
@@ -271,33 +279,47 @@ LOG_G_RTOL = 1e-9
 LOG_MAF_RTOL = 1e-10
 ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
 # Float64 operations a (site, column) of the scan tier's kernels, counted
-# from csrc/log_chain.cu and csrc/maf_log.cu with an exp or a log taken as
-# LOG_TRANS_OPS operations (an estimate of the range reduction and
-# polynomial of CUDA's float64 exp and log, which the card runs as float64
-# FMA and add): logsum2 = 2 exp + log + max, 2 subtractions, 2 adds;
-# the site's decay and four log transitions 1 + exp + 6 + 4 log; a
-# forward or backward step of a 2-vector 2 logsum2 + 6 adds.
-LOG_TRANS_OPS = 20
-LOGSUM2_OPS = 3 * LOG_TRANS_OPS + 5
-LOGSUM3_OPS = 4 * LOG_TRANS_OPS + 8
-LOG_SITE_OPS = 7 + 5 * LOG_TRANS_OPS
-LOG_STEP_OPS = 2 * LOGSUM2_OPS + 6
-FLOPS_LOG = {
-    # per (site, column): the site, the product's two rows
-    "log_block_transfer": LOG_SITE_OPS + 2 * LOG_STEP_OPS,
-    # per (block, column): the forward and the backward walk
-    "log_combine": 2 * LOG_STEP_OPS,
-    # per (site, column): the site and a step forward, again backward,
-    # then p = exp(fw1 + bw1 - L) (posterior mode) or the four u terms
-    # and the two sums (grad mode)
-    "log_sweep": 2 * (LOG_SITE_OPS + LOG_STEP_OPS) + 2 + LOG_TRANS_OPS,
-    "log_sweep_grad": 2 * (LOG_SITE_OPS + LOG_STEP_OPS) + 4
-    + 4 * (LOG_TRANS_OPS + 1) + 17,
-    # per (site, individual, pass): calc_hwe 10 + 3 log, post_prob's
-    # logsum3 and 3 adds, 2 exp of 2 differences, the sums 5
-    "maf_log": 10 + 3 * LOG_TRANS_OPS + 3 + LOGSUM3_OPS
-    + 2 * (LOG_TRANS_OPS + 1) + 5,
+# from csrc/log_chain.cu and csrc/maf_log.cu with an exp taken as E and a
+# log as L operations: the float64 FMA (two), add and multiply
+# instructions of CUDA's exp and log, which probe_transcendentals reads
+# from their SASS on the card (the CPU rehearsal keeps the estimate of 20
+# each below). logsum2 = 2 exp + log + max, 2 subtractions, 2 adds; the
+# site's decay and four log transitions 1 + exp + 6 + 4 log; a forward or
+# backward step of a 2-vector 2 logsum2 + 6 adds.
+def flops_log(E, L):
+    logsum2 = 2 * E + L + 5
+    logsum3 = 3 * E + L + 8
+    site = 7 + E + 4 * L
+    step = 2 * logsum2 + 6
+    return {
+        # per (site, column): the site, the product's two rows
+        "log_block_transfer": site + 2 * step,
+        # per (block, column): the forward and the backward walk
+        "log_combine": 2 * step,
+        # per (site, column): the site and a step forward, again backward,
+        # then p = exp(fw1 + bw1 - L) (posterior mode) or the four u terms
+        # and the two sums (grad mode)
+        "log_sweep": 2 * (site + step) + 2 + E,
+        "log_sweep_grad": 2 * (site + step) + 4 + 4 * (E + 1) + 17,
+        # per (site, individual, pass): calc_hwe 10 + 3 log, post_prob's
+        # logsum3 and 3 adds, 2 exp of 2 differences, the sums 5
+        "maf_log": 10 + 3 * L + 3 + logsum3 + 2 * (E + 1) + 5,
+    }
+
+
+FLOPS_LOG = flops_log(20, 20)
+
+# one float64 exp and one float64 log, each alone in a kernel
+TRANSCENDENTAL_PROBE_CU = r"""
+#include <math.h>
+extern "C" __global__ void probe_exp(const double* x, double* y) {
+    y[threadIdx.x] = exp(x[threadIdx.x]);
 }
+extern "C" __global__ void probe_log(const double* x, double* y) {
+    y[threadIdx.x] = log(x[threadIdx.x]);
+}
+"""
+
 
 KERNELS = {
     # name: (source, TPU kernel replaced)
@@ -1411,6 +1433,69 @@ def probe_build(lanes_by_source, csrc=None):
                 f"{p.get('spill', (0, 0))}, smem {smem} B; "
                 f"{ctas} CTAs of {threads} an SM ({waves}); {n_ins} SASS "
                 f"instructions, loops: {top or 'none'}{floor}")
+
+
+def probe_transcendentals():
+    """The float64 operations of CUDA's exp and log as the package builds
+    them (NVCC_FLAGS, -fmad=false): TRANSCENDENTAL_PROBE_CU to a cubin,
+    cuobjdump -sass, and per function the DFMA (two operations), DADD and
+    DMUL instructions, before the first EXIT (the path every finite input
+    in range takes; the special-case branches laid out after it are
+    counted apart). Sets FLOPS_LOG from those counts and returns them
+    (exp, log). Fails the run if they cannot be read."""
+    import re
+    import shutil
+
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    d = cuda_lib.build_dir() / "probe_build"
+    d.mkdir(parents=True, exist_ok=True)
+    src, cubin = d / "transcendentals.cu", d / "transcendentals.cubin"
+    src.write_text(TRANSCENDENTAL_PROBE_CU)
+    nvcc = cuda_lib._nvcc()
+    r = subprocess.run([nvcc, *cuda_lib.NVCC_FLAGS, "-cubin", str(src),
+                        "-o", str(cubin)], capture_output=True, text=True)
+    if r.returncode:
+        fail(f"probe_transcendentals: nvcc failed:\n{r.stderr}")
+    dump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([dump, "-sass", str(cubin)], capture_output=True,
+                          text=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), [{}, {}, False])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if cur is None or not m:
+            continue
+        op = re.sub(r"^@!?U?P\w+\s+", "", m.group(1).strip()).split()[0]
+        key = op.split(".")[0]
+        side = cur[1] if cur[2] else cur[0]
+        side[key] = side.get(key, 0) + 1
+        if key == "EXIT":
+            cur[2] = True
+
+    def ops(c):
+        return 2 * c.get("DFMA", 0) + c.get("DADD", 0) + c.get("DMUL", 0)
+
+    got = []
+    for fn in ("probe_exp", "probe_log"):
+        if fn not in counts or not ops(counts[fn][0]):
+            fail(f"probe_transcendentals: no float64 operations read for "
+                 f"{fn} from the SASS")
+        fast, rest, _ = counts[fn]
+        got.append(ops(fast))
+        log(f"[probe build] {fn[6:]} (float64): {ops(fast)} operations to "
+            f"the first EXIT (DFMA {fast.get('DFMA', 0)}, DADD "
+            f"{fast.get('DADD', 0)}, DMUL {fast.get('DMUL', 0)}; MUFU "
+            f"{fast.get('MUFU', 0)}, {sum(fast.values())} instructions), "
+            f"{ops(rest)} more in the branches after it")
+    FLOPS_LOG.update(flops_log(*got))
+    log(f"[probe build] float64 operations a (site, column) of the scan "
+        f"tier's kernels: {json.dumps(FLOPS_LOG)}")
+    return tuple(got)
 
 
 _transfer_lib = []
@@ -2529,16 +2614,20 @@ def maf_log_passes(torch, gl, p):
 
 
 def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
-                      oracle=False):
+                      oracle=False, e_prob=None):
     """The scan tier's kernels (csrc/log_chain.cu, csrc/maf_log.cu) against
     their plain versions on `dev`, float64, at this shape: the emissions of
     (gl, freq), the chain's three kernels (the sweep in both modes), then
     maf_log on the chain's snapped posterior, also on a replicate's
     strided columns and in its float32 instantiation; each timed beside
-    its bound (float64 operations over PEAK_F64, or bytes). oracle=True
-    (a small shape): also the public chain functions against the per-site
-    oracle loops of models/hmm.py and float64 Viterbi against its plain
-    version. Fails the run on any disagreement."""
+    its bound (float64 operations over PEAK_F64, or bytes). e_prob: the
+    chain's emissions [S, C, 2] in place of (gl, freq)'s, with F and alpha
+    of its C columns: R = C / N replicates flattened into the columns, as
+    the scan_restart path runs them (the chain over all C columns, then
+    maf_log on the last replicate's strided columns, read in place).
+    oracle=True (a small shape): also the public chain functions against
+    the per-site oracle loops of models/hmm.py and float64 Viterbi against
+    its plain version. Fails the run on any disagreement."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -2551,14 +2640,16 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     dist_t = torch.as_tensor(dist).to(dev, f64)
     F_t = torch.as_tensor(F).to(dev, f64)
     a_t = torch.as_tensor(alpha).to(dev, f64)
-    e = calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
-    bs, nb = thmm.log_geometry(S, N)
-    log(f"[{label}] scan tier: S={S} N={N} float64 bs={bs} nb={nb} "
-        f"lanes={nb * N} pad sites={nb * bs - S} "
+    e = (calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
+         if e_prob is None else e_prob)
+    C = e.shape[1]
+    bs, nb = thmm.log_geometry(S, C)
+    log(f"[{label}] scan tier: S={S} columns={C} float64 bs={bs} nb={nb} "
+        f"lanes={nb * C} pad sites={nb * bs - S} "
         f"breaks={int(np.isinf(dist).sum())}")
     rec = Recorder(torch, label, results)
     chain = (e, dist_t, F_t, a_t)
-    e_bytes = S * N * 16 + S * 8 + N * 16
+    e_bytes = S * C * 16 + S * 8 + C * 16
 
     def gate(name, err, tol):
         if not err <= tol:
@@ -2570,16 +2661,16 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     A_p, pms = timer(lambda: thmm._log_block_transfer_plain(*chain, bs, nb),
                      reps=1, warm=0)
     err = gate("log_block_transfer", log_err(torch, A, A_p), LOG_RTOL)
-    rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * N * 32,
-               S * N * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
+    rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * C * 32,
+               S * C * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
 
     out, ms = timer(lambda: thmm.log_combine(A, F_t))
     out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
                        warm=0)
     err = gate("log_combine", max(log_err(torch, a, b)
                                   for a, b in zip(out, out_p)), LOG_RTOL)
-    rec.record("log_combine", err, ms, pms, nb * N * (32 + 32) + N * 24,
-               nb * N * FLOPS_LOG["log_combine"], peak=PEAK_F64)
+    rec.record("log_combine", err, ms, pms, nb * C * (32 + 32) + C * 24,
+               nb * C * FLOPS_LOG["log_combine"], peak=PEAK_F64)
     fw_in, bw_out, ll_f, ll_b = out
     rec.finite("log_combine", ll_f, ll_b)
     sweep = chain + (fw_in, bw_out, ll_f, bs)
@@ -2594,22 +2685,24 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                      warm=0)
     err_g = gate("log_sweep (grad)", log_err(torch, g, g_p), LOG_G_RTOL)
     rec.finite("log_sweep", p, g)
-    in_bytes = e_bytes + nb * N * 32 + N * 8
+    in_bytes = e_bytes + nb * C * 32 + C * 8
     # the grad mode (every L-BFGS evaluation) is the kernel's line; the
     # posterior mode (the E-step) rides beside it
     rec.record("log_sweep", max(err_p, err_g), ms, pms,
-               in_bytes + nb * N * 16, S * N * FLOPS_LOG["log_sweep_grad"],
+               in_bytes + nb * C * 16, S * C * FLOPS_LOG["log_sweep_grad"],
                peak=PEAK_F64)
-    b_ms = max((in_bytes + S * N * 8) / PEAK_BYTES,
-               S * N * FLOPS_LOG["log_sweep"] / PEAK_F64) * 1e3
+    b_ms = max((in_bytes + S * C * 8) / PEAK_BYTES,
+               S * C * FLOPS_LOG["log_sweep"] / PEAK_F64) * 1e3
     results["log_sweep"]["posterior_mode"] = dict(
         ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, max_abs_err=err_p)
     log(f"[{label}] log_sweep posterior mode: max diff {err_p:.3g}, kernel "
         f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms")
     del A, A_p, out_p, p_p, g_p
 
-    # ---- maf_log on the chain's snapped posterior
-    ps = check_interv(p)
+    # ---- maf_log on the chain's snapped posterior (of the last replicate
+    # where the columns hold R of them: a strided view, read in place)
+    ps_all = check_interv(p)
+    ps = ps_all[:, C - N:]
     f_k, ms = timer(lambda: tmaf.est_maf(gl_t, ps))
     f_p, pms = timer(lambda: tmaf._est_maf_plain(gl_t, ps), reps=1, warm=0)
     rec.finite("maf_log", f_k, f_p)
@@ -2628,8 +2721,10 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                int(passes.sum()) * N * FLOPS_LOG["maf_log"], peak=PEAK_F64)
     log(f"[{label}] maf_log: passes a site min {int(passes.min())}, mean "
         f"{float(passes.double().mean()):.2f}, max {int(passes.max())}")
-    flat = torch.cat([ps * 0.5, ps], dim=1)  # replicate 1 of R = 2
-    if not torch.equal(tmaf.est_maf(gl_t, flat[:, N:]), f_k):
+    # the same columns strided (replicate 1 of R = 2), or contiguous
+    other = (tmaf.est_maf(gl_t, torch.cat([ps * 0.5, ps], dim=1)[:, N:])
+             if C == N else tmaf.est_maf(gl_t, ps.contiguous()))
+    if not torch.equal(other, f_k):
         fail(f"maf_log [{label}]: strided replicate columns differ")
     f32 = torch.float32
     f_k32 = tmaf.est_maf(gl_t.to(f32), ps.to(f32))
@@ -2642,7 +2737,7 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     if share32 > MAF_FLIP_SHARE or d32 > MAF_FREQ_ATOL:
         fail(f"maf_log float32 [{label}]: {share32} of the sites off, by "
              f"up to {d32}")
-    del p, g, ps, flat
+    del p, g, ps, ps_all, other
 
     if not oracle:
         return
@@ -3177,7 +3272,10 @@ def against_parent(path, label="main"):
 
 
 # the paths whose final freqs --maf-anchor writes and --against-maf holds
-ANCHOR_PATHS = ("main", "bf16", "exact", "ld", "restart")
+# (freq_e: the fused tier's --freq e initial estimate at the main shape)
+ANCHOR_PATHS = ("main", "bf16", "exact", "ld", "ld2", "restart", "freq_e")
+# the fused tier's CLI runs (--freq e) whose outputs it keeps and holds
+ANCHOR_CLI = ("cli", "cli_ld")
 
 
 def run_maf_anchor(torch, dev, args):
@@ -3185,10 +3283,13 @@ def run_maf_anchor(torch, dev, args):
     (est_maf_exact at the exact path's shape, macro_slab and est_maf_slab
     at the main path's, est_maf_slab on bfloat16 slabs, est_maf_rows on
     the LD path's rows), then the main (without the writers), bf16, exact,
-    ld and restart paths, on this tree's package or on --tree's; writes
-    the anchor's readings (anchor.json) and the paths' final freqs
-    ({label}_freq.npy) under OUT for --against-maf. Prints no result and
-    returns 4."""
+    ld, ld2 and restart paths, the fused tier's --freq e estimate at the
+    main shape and its CLI runs with --freq e (one run, and the LD path),
+    on this tree's package or on --tree's; writes the anchor's readings
+    (anchor.json), the paths' final freqs ({label}_freq.npy) and the CLI
+    runs' outputs ({tag}.indF, {tag}.ibd) under OUT for --against-maf,
+    and with --against-maf holds them to that tree's. Prints no result
+    and returns 4."""
     import pathlib
 
     out = pathlib.Path(args.maf_anchor)
@@ -3210,6 +3311,16 @@ def run_maf_anchor(torch, dev, args):
     run_path(torch, dev, "exact", gl_x, dist_x, freq_x, F0_x, a0_x, 1,
              CHAIN_KERNELS + ("maf_exact",), writers=False)
     run_ld_path(torch, dev, "ld", gl, dist, freq, F0, a0, 1)
+    S_c = args.check_sites  # ld2 as main() runs it
+    run_ld_path(torch, dev, "ld2", np.ascontiguousarray(gl[:S_c]),
+                dist[:S_c], freq[:S_c], F0, a0, 2)
+    from ngsf_hmm_tpu_torch.io.gsl_rng import GslTaus
+    from ngsf_hmm_tpu_torch.io.init import init_freq
+
+    FINAL_FREQ["freq_e"] = init_freq("e", gl.shape[0], GslTaus(args.seed),
+                                     gl=gl, device=dev)
+    log(f"[freq_e] the --freq e estimate at S={gl.shape[0]} N={gl.shape[1]} "
+        f"{gl.dtype}: mean {FINAL_FREQ['freq_e'].mean():.6f}")
     del gl
     gl_c, dist_c, freq_c, _, _ = simulate(args.check_sites, args.ind,
                                           args.seed + 7, n_chrom=1)
@@ -3217,26 +3328,46 @@ def run_maf_anchor(torch, dev, args):
     dist_c[step::step] = np.inf  # as main() makes the restart path's data
     run_restart_path(torch, dev, gl_c, dist_c, freq_c, 3 if dev.type ==
                      "cpu" else 20, args.seed + 5)
+    tree = os.path.abspath(args.tree) if args.tree else None
+    run_cli(dev, args.seed, keep=out / "cli", cwd=tree)
+    run_cli(dev, args.seed, ld=True, keep=out / "cli_ld", cwd=tree)
     (out / "anchor.json").write_text(json.dumps(ANCHORS, indent=1))
     for label in ANCHOR_PATHS:
         np.save(out / f"{label}_freq.npy", FINAL_FREQ[label])
     log(f"maf anchor written to {out}; no result is printed for it")
+    if args.against_maf:
+        against_maf(args.against_maf, out)
     return 4
 
 
-def against_maf(path):
+def _indf_parts(path):
+    """A .indF file's numbers: the log-likelihood, the [N, 2] (F, alpha)
+    rows (NA as NaN) and the freqs."""
+    lines = [line.split() for line in open(path) if line.strip()]
+    num = lambda t: np.nan if t == "NA" else float(t)
+    return {"logLkl": np.array([num(lines[0][0])]),
+            "F alpha": np.array([[num(t) for t in row] for row in lines[1:]
+                                 if len(row) == 2]),
+            "freq": np.array([num(row[0]) for row in lines[1:]
+                              if len(row) == 1])}
+
+
+def against_maf(path, mine_dir=None):
     """Sets this run's float64 anchor beside another tree's and holds the
-    main, bf16, exact, ld and restart paths' final freqs to that tree's
-    (run_maf_anchor's files under `path`, the same data from the same
-    seed; those of the paths it wrote): prints whether each function's
-    largest and mean distance from float64 and its share of sites off by a
-    step are no larger than there (information) and whether each path's
-    final freqs are bit-equal to there's; fails unless they are within
-    MAF_FREQ_ATOL of there."""
+    ANCHOR_PATHS' final freqs to that tree's (run_maf_anchor's files under
+    `path`, the same data from the same seed; those of the paths it
+    wrote): prints whether each function's largest and mean distance from
+    float64 and its share of sites off by a step are no larger than there
+    (information) and whether each path's final freqs are bit-equal to
+    there's; fails unless they are within MAF_FREQ_ATOL of there. With
+    mine_dir (this run's --maf-anchor files) also the CLI runs' outputs:
+    .indF bit-equal or its largest difference (the log-likelihood, F,
+    alpha, freqs), .ibd paths equal (information)."""
     import pathlib
 
     path = pathlib.Path(path)
     there = json.loads((path / "anchor.json").read_text())
+    bad = []
     for key, r in there.items():
         mine = ANCHORS.get(key)
         if mine is None:
@@ -3247,14 +3378,32 @@ def against_maf(path):
             f"{r['mean']:.4g}), sites off {mine['share']:.4g} (there "
             f"{r['share']:.4g}); no further than there: {closer}")
     for label in ANCHOR_PATHS:
-        if not (path / f"{label}_freq.npy").exists():
+        if label not in FINAL_FREQ or not (path /
+                                           f"{label}_freq.npy").exists():
             continue
         want = np.load(path / f"{label}_freq.npy")
         d = float(np.abs(FINAL_FREQ[label] - want).max())
         log(f"[{label}] final freq against {path}: max diff {d:.3g}, "
-            f"bit-equal {np.array_equal(FINAL_FREQ[label], want)}")
+            f"sites differing {int((FINAL_FREQ[label] != want).sum())} of "
+            f"{want.size}, bit-equal {np.array_equal(FINAL_FREQ[label], want)}")
         if d > MAF_FREQ_ATOL:
-            fail(f"[{label}] final freq off {path}'s by {d}")
+            bad.append(f"[{label}] final freq off {path}'s by {d}")
+    for tag in ANCHOR_CLI if mine_dir is not None else ():
+        files = [pathlib.Path(q) / f"{tag}.{ext}" for q in (mine_dir, path)
+                 for ext in ("indF", "ibd")]
+        if not all(f.exists() for f in files):
+            continue
+        a, b = (_indf_parts(f) for f in files[0::2])
+        diffs = {k: (float(np.nanmax(np.abs(a[k] - b[k]), initial=0.0))
+                     if a[k].shape == b[k].shape else np.inf) for k in a}
+        same = files[0].read_bytes() == files[2].read_bytes()
+        ibd_same = files[1].read_bytes() == files[3].read_bytes()
+        log(f"[{tag}] CLI --freq e (fused tier) against {path}: .indF "
+            f"bit-equal {same}, largest differences " + ", ".join(
+                f"{k} {v:.3g}" for k, v in diffs.items())
+            + f"; .ibd equal {ibd_same}")
+    if bad:
+        fail("; ".join(bad))
 
 
 def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
@@ -3537,14 +3686,17 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
     return counts
 
 
-def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False):
+def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False,
+            keep=None, cwd=None):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
     with numpy, on the fused tier (--dtype float32 --kernel pallas), or
     with scan on the default tier (no --dtype / --kernel: the float64 scan
     tier) (n_rep > 1: that many lockstep restarts, the best replicate's
     files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the JAX
     package's warning on stderr; gl_bf16: --gl_bf16 1 at 40 individuals,
-    the slab est_maf route); exit code and outputs checked."""
+    the slab est_maf route); exit code and outputs checked. keep: a path
+    prefix the .indF and .ibd outputs are copied to; cwd: the directory
+    whose package runs (another tree's; this script's by default)."""
     S, N = 5000, 40 if ld or gl_bf16 else 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3572,7 +3724,8 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False):
         if not scan:
             cmd += ["--dtype", "float32", "--kernel", "pallas"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                           cwd=os.path.dirname(os.path.abspath(__file__)))
+                           cwd=cwd or os.path.dirname(
+                               os.path.abspath(__file__)))
         if r.returncode != 0:
             fail(f"CLI exited {r.returncode}:\n{r.stdout[-2000:]}\n"
                  f"{r.stderr[-2000:]}")
@@ -3585,6 +3738,11 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False):
             fail(f"CLI .indF has {n_lines} lines, expected {1 + N + S}")
         if not os.path.getsize(out + ".ibd"):
             fail("CLI .ibd is empty")
+        if keep is not None:
+            import shutil
+
+            for ext in (".indF", ".ibd"):
+                shutil.copyfile(out + ext, str(keep) + ext)
         final = [l for l in r.stdout.splitlines() if "Final logLkl" in l][0]
         if ld:
             vals = [float(x) for l in open(out + ".indF") for x in l.split()
@@ -3614,6 +3772,7 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False):
 
 
 def main():
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sites", type=int, default=1_000_000)
     ap.add_argument("--ind", type=int, default=100)
@@ -3635,16 +3794,17 @@ def main():
                     "the main and restart shapes; exits 4")
     ap.add_argument("--maf-anchor", metavar="OUT",
                     help="only the float64 anchor of the one-launch "
-                    "est_maf functions and the main, bf16, exact, ld and "
-                    "restart paths, their readings and final freqs written "
-                    "under OUT; exits 4")
+                    "est_maf functions, the main, bf16, exact, ld, ld2 and "
+                    "restart paths, the fused --freq e estimate and CLI "
+                    "runs, their readings, final freqs and CLI outputs "
+                    "written under OUT; exits 4")
     ap.add_argument("--tree", metavar="DIR",
                     help="with --maf-anchor: run another tree's package "
                     "(its ngsf_hmm_tpu_torch under DIR)")
     ap.add_argument("--against-maf", metavar="DIR",
-                    help="hold the float64 anchor and the main, bf16, "
-                    "exact, ld and restart paths' final freqs to another "
-                    "tree's --maf-anchor files under DIR")
+                    help="hold the float64 anchor and the paths' final "
+                    "freqs (with --maf-anchor also the CLI outputs) to "
+                    "another tree's --maf-anchor files under DIR")
     args = ap.parse_args()
     if args.tree:
         if not args.maf_anchor:
@@ -3685,6 +3845,7 @@ def main():
         if args.probe_build:
             probe_build(probe_lanes(args.sites, args.ind, args.check_sites),
                         args.probe_build)
+            probe_transcendentals()
             return 4
         if args.maf_anchor:
             cuda_lib.load()
@@ -3703,6 +3864,7 @@ def main():
             f"{cuda_lib.build()} in {time.perf_counter() - t0:.1f} s (set-up)")
         t0 = time.perf_counter()
         probe_build(probe_lanes(args.sites, args.ind, args.check_sites))
+        probe_transcendentals()
         log(f"[probe build] done in {time.perf_counter() - t0:.1f} s")
         check_window_division(torch)
         if args.probes:
@@ -3819,6 +3981,24 @@ def main():
                      results, probe=True)
     del flat
     log(f"[v1] kernels checked in {time.perf_counter() - t0:.1f} s")
+    # the scan tier's kernels at the scan_restart path's shape: the same
+    # replicates' float64 emissions in R * N columns, the chain's own
+    # block geometry there; the lines keep the main shape's times and
+    # take the larger error
+    t0 = time.perf_counter()
+    flat = flatten_states(stack_restart_states(
+        torch.as_tensor(gl_c).to(dev, torch.float64), R, args.seed + 5,
+        device=dev))
+    label_r, at_restart = f"restart shape R={R}", {}
+    check_log_kernels(torch, dev, gl_c, dist_c, None, flat.indF, flat.alpha,
+                      label_r, at_restart, e_prob=flat.e_prob)
+    del flat
+    for name, r in at_restart.items():
+        mine = results[name]
+        mine["max_abs_err"] = max(mine["max_abs_err"], r["max_abs_err"])
+        by = mine.setdefault("ms_by_shape", {"main shape": mine["ms"]})
+        by[label_r] = r["ms"]
+    log(f"[scan restart shape] done in {time.perf_counter() - t0:.1f} s")
     # maf_exact runs on the exact path only: its line keeps the times at
     # that path's shape and the largest error over all three shapes
     exact_results["maf_exact"]["max_abs_err"] = max(
@@ -3903,6 +4083,8 @@ def main():
         for extra in ("ms_by_shape", "posterior_mode"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+    log(f"[total] {time.perf_counter() - t_script:.1f} s from the start to "
+        "the result lines (the 1,200 s limit includes the build)")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -335,14 +335,15 @@ def _refuse_unported(p):
         error("main", f"--kernel {kernel} is not ported yet (ROADMAP queue "
                       "1: 'models/hmm_blocked.py'); --kernel scan and "
                       "--kernel pallas are")
-    if kernel == "scan" and dtype == "float32":
-        error("main", "--dtype float32 --kernel scan is not ported yet "
-                      "(ROADMAP queue 1: 'float32 scan tier'); the scan "
-                      "tier runs float64")
-    if kernel == "pallas" and dtype == "float64":
-        error("main", "--dtype float64 --kernel pallas is not ported yet "
-                      "(ROADMAP queue 1: 'float64 on the fused tier'); the "
-                      "fused tier runs float32")
+    import torch
+
+    from .models.em import _refuse
+
+    try:  # the tier's float type: models/em.TIER_DTYPES
+        _refuse(numerics="log" if kernel == "scan" else "pallas",
+                dtype=getattr(torch, dtype))
+    except NotImplementedError as e:
+        error("main", f"--dtype {dtype} --kernel {kernel}: {e}")
     if p["n_rep"] > 1 and (p["freq_est"] == 2 or p["e_prob"] != 1):
         item = ("log-tier --n_rep with the LD modes" if kernel == "scan"
                 else "models/hmm_blocked.py")

@@ -124,10 +124,20 @@ class EMResult:
     opt_memory: object = None
 
 
+# numerics -> the float type its tier runs in (as the JAX CLI pairs
+# --dtype with --kernel; the fused tier's gl slabs may be bfloat16, its
+# state stays float32) and the ROADMAP item that would lift any other.
+# The one place that says so: _refuse holds the entry points and the CLI
+# to it.
+TIER_DTYPES = {"log": (torch.float64, "float32 scan tier"),
+               "pallas": (torch.float32, "float64 on the fused tier")}
+
+
 def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="log",
             block_size=None, dtype=None):
     """Raise for every option value this package does not carry yet.
-    dtype: the state's, where known (the scan tier is float64 only)."""
+    dtype: the state's, where known; it must be its tier's
+    (TIER_DTYPES)."""
     if n_rep < 1:
         raise ValueError(f"n_rep must be >= 1, got {n_rep}")
     if freq_est not in (0, 1, 2):
@@ -151,10 +161,11 @@ def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="log",
         raise NotImplementedError(
             f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
             f"{e_prob_calc} (ROADMAP queue 1: 'models/hmm_blocked.py')")
-    if numerics == "log" and dtype is not None and dtype != torch.float64:
+    want, item = TIER_DTYPES[numerics]
+    if dtype is not None and dtype != want:
         raise NotImplementedError(
-            f"numerics 'log' in {dtype} (ROADMAP queue 1: 'float32 scan "
-            "tier'); the scan tier runs float64")
+            f"numerics {numerics!r} in {dtype} is not ported yet (ROADMAP "
+            f"queue 1: '{item}'); that tier runs {want}")
     if block_size:
         raise NotImplementedError(
             "block_size (ROADMAP queue 1: 'models/hmm_blocked.py')")
@@ -176,7 +187,9 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
     """Initial EM state with emissions from the initial freqs
     (parse_args.cpp:370-387). gl/freq0/indF0/alpha0: tensors or numpy
     arrays; everything is moved to `device` in `dtype` (None: gl's own,
-    as in the JAX package: float64 for the scan tier).
+    as in the JAX package). A tier runs only a state of its TIER_DTYPES
+    type (float64 for the scan tier, float32 for the fused one): the
+    entry points refuse any other.
 
     e_prob_calc == 2: sites >= 1 get LD-conditioned pair emissions
     (parse_args.cpp:373-386) from the corrected pair EM seeded with the
@@ -680,10 +693,10 @@ def run_em(
     """
     from .driver import convergence_loop
 
+    dev = _device(device)
     dtype = state.indF.dtype
     _refuse(opts.freq_est, opts.e_prob_calc, 1, opts.numerics,
             opts.block_size, dtype)
-    dev = _device(device)
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
     dist = torch.as_tensor(dist).to(device=dev, dtype=dtype)
     state = EMState(*(t.to(dev) for t in state))

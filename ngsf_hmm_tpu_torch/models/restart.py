@@ -40,7 +40,8 @@ def stack_restart_states(gl, n_rep, seed, indF_spec="r", freq_spec="r",
     indF_spec/freq_spec follow the CLI's init strings
     (parse_args.cpp:248-363); replicate r resolves its random draws with
     GslTaus(seed + r). Returns an EMState whose fields have a leading [R]
-    axis, on `device` in `dtype` (None: gl's own)."""
+    axis, on `device` in `dtype` (None: gl's own; em.TIER_DTYPES says
+    which type each tier runs)."""
     dev = _device(device)
     gl = torch.as_tensor(gl)
     dtype = gl.dtype if dtype is None else dtype
@@ -142,10 +143,10 @@ def run_em_restarts(gl, dist, states: EMState, opts: EMOptions,
                          f"{R}: one replicate is models/em.run_em")
     # (gl_bf16 changes nothing here: the flattened route reads emission
     # slabs, and its freq M-step float32 gl slabs, as in the JAX package)
+    dev = _device(device)
     dtype = states.indF.dtype
     _refuse(opts.freq_est, opts.e_prob_calc, R, opts.numerics,
             opts.block_size, dtype)
-    dev = _device(device)
     gl = torch.as_tensor(gl).to(device=dev, dtype=dtype)
     dist = torch.as_tensor(dist).to(device=dev, dtype=dtype)
     flat = flatten_states(EMState(*(t.to(dev) for t in states)))

@@ -326,6 +326,25 @@ def test_scan_tier_is_the_default_and_refuses_what_it_lacks(case):
     assert sts.e_prob.dtype == torch.float64 and sts.e_prob.shape[0] == 2
 
 
+def test_fused_tier_refuses_a_float64_state(case):
+    """The tier's float type is models/em.TIER_DTYPES': a float64 state
+    (init_state's default from a float64 gl) is refused on the fused tier
+    by every entry point, not run on its float32 kernels."""
+    a = case["arrays"]
+    st = t_em.init_state(case["gl"], a["freq"], a["indF"], a["alpha"],
+                         device="cpu")
+    opts = t_em.EMOptions(numerics="pallas", min_iters=2, max_iters=3)
+    with pytest.raises(NotImplementedError, match="float64 on the fused"):
+        t_em.em_iteration(case["gl_t"], case["dist_t"], st,
+                          numerics="pallas")
+    with pytest.raises(NotImplementedError, match="float64 on the fused"):
+        t_em.run_em(case["gl"], case["dist"], st, opts, device="cpu")
+    sts = t_restart.stack_restart_states(case["gl"], 2, 5, device="cpu")
+    with pytest.raises(NotImplementedError, match="float64 on the fused"):
+        t_restart.run_em_restarts(case["gl"], case["dist"], sts, opts,
+                                  device="cpu")
+
+
 @pytest.mark.parametrize("extra, msg", [
     (["--dtype", "float32"], "float32 scan tier"),
     (["--kernel", "pallas"], "float64 on the fused tier"),
