@@ -11,9 +11,14 @@ needs one CUDA device and nvcc. It
      spills, residency, waves and SASS loops, for kernel B the SASS of a
      cell and the cells' issue floor, for maf_exact and maf_macro the SASS
      of a pass, a gradient round and a window step and their issue floor,
-     for maf_window the SASS of a step and its issue floor (probe_build),
-     and reads the float64 operations of CUDA's exp and log from their
-     SASS, which the scan tier's bounds count (probe_transcendentals),
+     for maf_window the SASS of a step and its issue floor, for the scan
+     tier's log_chain.cu and maf_log.cu their three largest loops
+     (probe_build), and reads the float64 operations of CUDA's exp and
+     log from their SASS, which the scan tier's bounds count
+     (probe_transcendentals); then checks on the card that exp(+-0.0) is
+     1.0 and that the one-exp logsum2 / logsum3 of log_common.cuh give
+     the bits of the forms with an exp for every term on edge and random
+     arguments (check_logsum_identity),
   3. holds every kernel against its plain PyTorch version on the card, at a
      shape with a ragged last block and chromosome breaks and at the main
      path's shape, and times both there; the est_maf kernels read the
@@ -69,7 +74,11 @@ needs one CUDA device and nvcc. It
      on a replicate's strided columns), and at 2,003 x 33 (a site at
      distance 0) the
      chain functions against the per-site oracle loops and float64
-     Viterbi against its plain version,
+     Viterbi against its plain version; maf_log also at 33,333 sites x
+     20, 33, 100 and 130 individuals, 10,007 x 1,000 and 1,001 x 4,000
+     (every segment width its geometry chooses, and cells read from
+     device memory), printing the passes its warps run against those its
+     sites need and the share of cells that take their own prior logs,
   4. drives nine paths, each with the launch counts set to 0 just before
      and read just after: init_state -> run_em (min_iters 3, max_iters 4,
      Viterbi) [-> the three writers]
@@ -108,12 +117,18 @@ needs one CUDA device and nvcc. It
      then once on the default tier (the float64 scan tier).
 --against LOG also holds main's streams per iteration, final tot_lkl
 and Viterbi IBD share to another tree's log of the same run (the parent's,
-in one call). --probes runs only the measurements and exits 4;
+in one call). --before CSRC builds another tree's log_chain.cu and
+maf_log.cu (the parent's) beside this tree's and times both in turns at
+the scan and scan_restart shapes, this tree's chain kernels also at the
+other tree's geometry, where they must give its bits and their plain
+versions', and maf_log inside its gates of the other's; exits 4. --probes runs only the measurements
+and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
 --maf-anchor OUT [--tree DIR] runs only the float64 anchor, the main
-(without the writers), bf16, exact, ld, ld2 and restart paths, the fused
-tier's --freq e estimate at the main shape and its CLI runs with --freq e
-(one run, the LD path) (of DIR's package), writes their readings, final
+(without the writers), bf16, exact, ld, ld2, restart, scan and
+scan_restart paths, the fused tier's --freq e estimate at the main shape
+and its CLI runs with --freq e (one run, the LD path) (of DIR's
+package), writes their readings, final
 freqs and CLI outputs under OUT and exits 4; --against-maf OUT, in a full
 run or beside --maf-anchor, then sets this run's anchor beside them and
 holds those paths' final freqs to them (printing whether they are
@@ -283,12 +298,16 @@ ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
 # log as L operations: the float64 FMA (two), add and multiply
 # instructions of CUDA's exp and log, which probe_transcendentals reads
 # from their SASS on the card (the CPU rehearsal keeps the estimate of 20
-# each below). logsum2 = 2 exp + log + max, 2 subtractions, 2 adds; the
-# site's decay and four log transitions 1 + exp + 6 + 4 log; a forward or
-# backward step of a 2-vector 2 logsum2 + 6 adds.
-def flops_log(E, L):
-    logsum2 = 2 * E + L + 5
-    logsum3 = 3 * E + L + 8
+# each below). logsum2 = exp + log + max, a subtraction, 1 + (m - m) in
+# place of the maximum term's exp (log_common.cuh), 2 adds; logsum3 the
+# same with 2 exps; one_exp=False counts the parent tree's forms (an exp
+# for every term: logsum2 2 exp + log + max, 2 subtractions, 2 adds),
+# the old bounds printed beside the new. The site's decay and four log
+# transitions 1 + exp + 6 + 4 log; a forward or backward step of a
+# 2-vector 2 logsum2 + 6 adds.
+def flops_log(E, L, one_exp=True):
+    logsum2 = E + L + 6 if one_exp else 2 * E + L + 5
+    logsum3 = 2 * E + L + 9 if one_exp else 3 * E + L + 8
     site = 7 + E + 4 * L
     step = 2 * logsum2 + 6
     return {
@@ -301,13 +320,24 @@ def flops_log(E, L):
         # and the two sums (grad mode)
         "log_sweep": 2 * (site + step) + 2 + E,
         "log_sweep_grad": 2 * (site + step) + 4 + 4 * (E + 1) + 17,
-        # per (site, individual, pass): calc_hwe 10 + 3 log, post_prob's
-        # logsum3 and 3 adds, 2 exp of 2 differences, the sums 5
+        # per (site, individual, pass), every cell taking its own prior
+        # logs (the parent tree's maf_log): calc_hwe 10 + 3 log,
+        # post_prob's logsum3 and 3 adds, 2 exp of 2 differences, the
+        # sums 5
         "maf_log": 10 + 3 * L + 3 + logsum3 + 2 * (E + 1) + 5,
+        # maf_log as csrc/maf_log.cu runs it: per (site, individual, pass)
+        # post_prob and the sums; per (site, individual, pass) whose F is
+        # neither 0 nor 1 its own calc_hwe; per (site, pass) the five
+        # snapped-prior logs, their five priors, A, B, pq, 2 pq, 1 - f and
+        # the update (2 adds, an add, the division, |prev - freq|)
+        "maf_log_cell": 3 + logsum3 + 2 * (E + 1) + 5,
+        "maf_log_own": 10 + 3 * L,
+        "maf_log_site": 5 * L + 10 + 5 + 5,
     }
 
 
 FLOPS_LOG = flops_log(20, 20)
+FLOPS_LOG_OLD = flops_log(20, 20, one_exp=False)
 
 # one float64 exp and one float64 log, each alone in a kernel
 TRANSCENDENTAL_PROBE_CU = r"""
@@ -1109,7 +1139,9 @@ def _sass_loops(sass):
 
 PROBE_SOURCES = ("block_transfer_grad.cu", "bw_sites.cu", "block_transfer.cu",
                  "maf_state_grad.cu", "maf_sums_grad.cu", "maf_exact.cu",
-                 "maf_macro.cu", "maf_window.cu")
+                 "maf_macro.cu", "maf_window.cu", "log_chain.cu", "maf_log.cu")
+# the scan tier's sources: probe_build prints their lines with log_probe_line
+LOG_PROBE_SOURCES = ("log_chain.cu", "maf_log.cu")
 # probe_build prints these two for the instantiation each shape uses only
 MAF_PROBE_SOURCES = ("maf_exact.cu", "maf_macro.cu")
 
@@ -1316,6 +1348,62 @@ def window_probe_line(nice, props, loops, shapes, source):
         f"{floors}{other}")
 
 
+def log_probe_line(nice, props, loops, shapes, source):
+    """probe_build's line for a scan-tier kernel (log_chain.cu,
+    maf_log.cu) at each shape: registers, spills, shared memory, resident
+    CTAs, waves, and its three largest SASS loops with their commonest
+    opcodes (the float64 DFMA / DADD / DMUL and MUFU among them). The
+    chain kernels run a thread a (block, column) lane (the combine a
+    thread a column and direction); maf_log runs the geometry its
+    template arguments name (maf_log_launch) or, in a tree whose kernel
+    gives a site one warp, ML_WARPS warps a CTA."""
+    import re
+
+    if not loops:
+        return
+    n_ins, lp, _, _ = loops
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    # a tree whose source defines its CTA size (the parent's), else the
+    # build's flag
+    m = re.search(r"#define LC_THREADS (\d+)", source)
+    lc = int(m.group(1)) if m else cuda_lib.LOG_CHAIN_THREADS
+    for label, sh in shapes.items():
+        smem = props["smem"]
+        if "k_log_combine" in nice:
+            threads, total = 64, 2 * sh["C"]
+        elif "k_log_" in nice:
+            threads, total = lc, sh["nb"] * sh["C"]
+        else:
+            if "k_maf_log<float" in nice:
+                continue  # the float32 instance: not on the scan tier
+            args = re.search(r"k_maf_log<([^>]*)>", nice)
+            ints = [int(a) for a in re.findall(r"\(int\)(\d+)",
+                                                args.group(1))] if args else []
+            if ints:
+                from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
+                G, C, warps, dyn = maf_log_launch(sh["N"], 8)
+                if ints[0] != G:
+                    continue
+                threads, smem = 32 * warps, smem + dyn
+                total = -(-sh["S"] * G // 32) * 32
+            else:
+                w = re.search(r"#define ML_WARPS (\d+)", source)
+                threads, total = 32 * int(w.group(1) if w else 8), 32 * sh["S"]
+        ctas = resident_ctas(props["regs"], threads, smem)
+        waves = total / (SM_COUNT * ctas * threads) if ctas else float("inf")
+        top = "; ".join(
+            f"{n} ins [" + ", ".join(
+                f"{o} {c}" for o, c in sorted(ops.items(),
+                                               key=lambda x: -x[1])[:10])
+            + "]" for n, ops in lp[:3])
+        log(f"[probe build] {nice[:90]} at {label}: {props['regs']} "
+            f"registers, spills {props.get('spill', (0, 0))}, smem {smem} "
+            f"B; {ctas} CTAs of {threads} an SM, {total} threads "
+            f"({waves:.2f} waves); {n_ins} SASS instructions; loops: "
+            f"{top or 'none'}")
+
+
 def probe_build(lanes_by_source, csrc=None):
     """For each source of PROBE_SOURCES: nvcc -Xptxas -v (registers,
     spills, shared memory of each instantiation) and cuobjdump -sass of
@@ -1394,6 +1482,10 @@ def probe_build(lanes_by_source, csrc=None):
             if src == "maf_window.cu":
                 window_probe_line(nice, p, loops.get(name), shapes,
                                   (csrc / src).read_text())
+                continue
+            if src in LOG_PROBE_SOURCES:
+                log_probe_line(nice, p, loops.get(name), shapes,
+                               (csrc / src).read_text())
                 continue
             n_ins, lp, flat, _ = loops.get(name, (0, [], 0, []))
             threads = 256 if "maf" in src else 128
@@ -1493,8 +1585,10 @@ def probe_transcendentals():
             f"{fast.get('MUFU', 0)}, {sum(fast.values())} instructions), "
             f"{ops(rest)} more in the branches after it")
     FLOPS_LOG.update(flops_log(*got))
+    FLOPS_LOG_OLD.update(flops_log(*got, one_exp=False))
     log(f"[probe build] float64 operations a (site, column) of the scan "
-        f"tier's kernels: {json.dumps(FLOPS_LOG)}")
+        f"tier's kernels: {json.dumps(FLOPS_LOG)}; the parent tree's forms "
+        f"(an exp for every logsum term): {json.dumps(FLOPS_LOG_OLD)}")
     return tuple(got)
 
 
@@ -1721,7 +1815,13 @@ def probe_lanes(S, N, S_c, R=20):
     macro = dict(sites=S, N=N, K0=K0, Ms=macro_rounds(K0, M))
     sums = dict(sites=bs * nb, N=N)
     window = dict(sites=bs * nb, M=max(macro_rounds(K0, M)))
-    return {"block_transfer_grad.cu": stream, "block_transfer.cu": stream,
+    from ngsf_hmm_tpu_torch.models.hmm import log_geometry
+
+    nb_l, nb_lr = log_geometry(S, N)[1], log_geometry(S_c, R * N)[1]
+    scan = {"main": dict(S=S, C=N, N=N, nb=nb_l),
+            "restart": dict(S=S_c, C=R * N, N=N, nb=nb_lr)}
+    return {"log_chain.cu": scan, "maf_log.cu": scan,
+            "block_transfer_grad.cu": stream, "block_transfer.cu": stream,
             "maf_window.cu": {"main": window},
             "bw_sites.cu": stream,
             "maf_state_grad.cu": {
@@ -2613,6 +2713,476 @@ def maf_log_passes(torch, gl, p):
     return passes
 
 
+def old_bound(results, label, name, nbytes, flops):
+    """Sets beside a scan-tier kernel's bound the one its work had in the
+    parent tree's forms (an exp for every logsum term; FLOPS_LOG_OLD)."""
+    ms = max(nbytes / PEAK_BYTES, flops / PEAK_F64) * 1e3
+    results[name]["bound_old_ms"] = ms
+    log(f"[{label}] {name}: bound in the parent tree's forms {ms:.4f} ms")
+
+
+def maf_log_warp_passes(torch, passes, N):
+    """The passes maf_log's warps run for these sites' `passes`, and the
+    sites a warp: a warp holds 32 / G consecutive sites (maf_log_launch)
+    and runs until its last one stops, so every site of it runs as
+    many."""
+    from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
+
+    spw = 32 // maf_log_launch(N, 8)[0]
+    S = passes.numel()
+    pad = torch.zeros((-S) % spw, dtype=passes.dtype, device=passes.device)
+    per = torch.cat([passes, pad]).view(-1, spw)
+    n = torch.cat([torch.ones_like(passes), pad]).view(-1, spw).sum(1)
+    return int((per.max(1).values * n).sum()), spw
+
+
+def check_maf_log(torch, label, gl_t, ps, rec=None, timer=None):
+    """maf_log (csrc/maf_log.cu) against its plain version on gl_t [S, N,
+    3] and the snapped posterior ps [S, N] (a view with strided rows is
+    read in place), float64: freq relative LOG_MAF_RTOL except at sites
+    that stop at another pass (at most MAF_FLIP_SHARE of them, within
+    MAF_FREQ_ATOL); then the float32 instance against its plain version
+    (MAF_RTOL, MAF_FLIP_SHARE, MAF_FREQ_ATOL). With rec: timed beside its
+    bound, counted from the passes this data needs (maf_log_passes) and
+    its cells whose F is neither 0 nor 1 (maf_log_cell, _own, _site), and
+    the parent tree's (every cell its own prior logs, an exp for every
+    logsum3 term); prints the passes the warps run against those needed
+    and the share of such cells. Returns (freq, the largest relative
+    difference at the sites that stop at the same pass)."""
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+
+    S, N = gl_t.shape[0], gl_t.shape[1]
+    G = tmaf.maf_log_geometry(N)[0]
+    if rec is not None:
+        f_k, ms = timer(lambda: tmaf.est_maf(gl_t, ps))
+        f_p, pms = timer(lambda: tmaf._est_maf_plain(gl_t, ps), reps=1,
+                         warm=0)
+    else:
+        f_k, f_p = tmaf.est_maf(gl_t, ps), tmaf._est_maf_plain(gl_t, ps)
+    name = "maf_log"
+    if rec is not None:
+        rec.finite(name, f_k, f_p)
+    rel = (f_k - f_p).abs() / f_p.abs()
+    off = rel > LOG_MAF_RTOL
+    share = float(off.double().mean())
+    d_off = float((f_k - f_p)[off].abs().max()) if bool(off.any()) else 0.0
+    err = float(rel[~off].max()) if not bool(off.all()) else float("inf")
+    log(f"[{label}] maf_log (N={N}, G={G}): freq max rel diff {err:.3g} "
+        f"where the pass agrees, sites stopping at another pass {share:.3g} "
+        f"of {S}, their freq max diff {d_off:.3g}")
+    if share > MAF_FLIP_SHARE or d_off > MAF_FREQ_ATOL:
+        fail(f"maf_log [{label}]: {share} of the sites off the plain "
+             f"version, by up to {d_off}")
+    if rec is not None:
+        passes = maf_log_passes(torch, gl_t, ps)
+        own = ((ps != 0) & (ps != 1)).sum(1)
+        flops = int((passes * (N * FLOPS_LOG["maf_log_cell"]
+                               + own * FLOPS_LOG["maf_log_own"]
+                               + FLOPS_LOG["maf_log_site"])).sum())
+        rec.record(name, err, ms, pms, S * N * 32 + S * 8, flops,
+                   peak=PEAK_F64)
+        rec.results[name]["bound_old_ms"] = max(
+            (S * N * 32 + S * 8) / PEAK_BYTES,
+            int(passes.sum()) * N * FLOPS_LOG_OLD["maf_log"] / PEAK_F64) * 1e3
+        run, spw = maf_log_warp_passes(torch, passes, N)
+        need = int(passes.sum())
+        log(f"[{label}] maf_log: passes a site min {int(passes.min())}, "
+            f"mean {float(passes.double().mean()):.2f}, max "
+            f"{int(passes.max())}; the warps run {run} site-passes for "
+            f"{need} needed ({run / need:.4f}x, {spw} sites a warp); cells "
+            f"whose F is neither 0 nor 1 (their own prior logs) "
+            f"{float(own.sum()) / (S * N):.4f}; bound in the "
+            f"parent tree's count {rec.results[name]['bound_old_ms']:.4f} "
+            f"ms")
+    f32 = torch.float32
+    f_k32 = tmaf.est_maf(gl_t.to(f32), ps.to(f32))
+    f_p32 = tmaf._est_maf_plain(gl_t.to(f32), ps.to(f32))
+    rel32 = (f_k32 - f_p32).abs() / f_p32.abs()
+    share32 = float((rel32 > MAF_RTOL).double().mean())
+    d32 = float((f_k32 - f_p32).abs().max())
+    log(f"[{label}] maf_log float32 (N={N}): sites off by more than "
+        f"{MAF_RTOL} {share32:.3g}, freq max diff {d32:.3g}")
+    if share32 > MAF_FLIP_SHARE or d32 > MAF_FREQ_ATOL:
+        fail(f"maf_log float32 [{label}]: {share32} of the sites off, by "
+             f"up to {d32}")
+    return f_k, err
+
+
+# maf_log's shapes beyond the paths': one for each segment width G that
+# maf_log_geometry chooses at these N (4, 4, 8, 16, 32), and N = 4,000,
+# whose cells are read from device memory every pass (maf_log_launch)
+MAF_LOG_NS = ((20, 33_333), (33, 33_333), (100, 33_333), (130, 33_333),
+              (1_000, 10_007), (4_000, 1_001))
+
+
+def check_maf_log_shapes(torch, dev, seed, results, Ns=MAF_LOG_NS):
+    """maf_log against its plain version (check_maf_log, float64 and
+    float32) at each (N, S) of Ns, on the snapped posterior the scan
+    tier's chain gives for simulated data; the kernel's line keeps the
+    largest error."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+
+    f64 = torch.float64
+    for i, (N, S) in enumerate(Ns):
+        gl, dist, freq, F0, a0 = simulate(S, N, seed + i)
+        gl_t = torch.as_tensor(gl).to(dev).to(f64)
+        e = calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
+        p, _, _ = thmm.posteriors(e, torch.as_tensor(dist).to(dev, f64),
+                                  torch.as_tensor(F0).to(dev, f64),
+                                  torch.as_tensor(a0).to(dev, f64))
+        del e
+        _, err = check_maf_log(torch, f"maf_log shape {S}x{N}", gl_t,
+                               check_interv(p))
+        r = results.setdefault("maf_log", {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        del gl_t, p
+
+
+# log_sum2 / log_sum3 of csrc/log_common.cuh (the maximum term taken as 1)
+# beside the forms with an exp for every term, float64 and float32, on
+# the card (check_logsum_identity)
+LOGSUM_CHECK_CU = r"""
+#include "log_common.cuh"
+template <typename T> __device__ T exp_sum2(T a, T b) {
+    const T m = lc_max(a, b);
+    if (m == (T)-INFINITY) return (T)-INFINITY;
+    return lc_log(lc_exp(a - m) + lc_exp(b - m)) + m;
+}
+template <typename T> __device__ T exp_sum3(T a, T b, T c) {
+    const T m = lc_max(lc_max(a, b), c);
+    if (m == (T)-INFINITY) return (T)-INFINITY;
+    return lc_log((lc_exp(a - m) + lc_exp(b - m)) + lc_exp(c - m)) + m;
+}
+template <typename T>
+__global__ void k_check(const T* x, T* out, long long n) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const T a = x[3 * i], b = x[3 * i + 1], c = x[3 * i + 2];
+    out[4 * i] = exp_sum2(a, b);
+    out[4 * i + 1] = log_sum2(a, b);
+    out[4 * i + 2] = exp_sum3(a, b, c);
+    out[4 * i + 3] = log_sum3(a, b, c);
+}
+__global__ void k_exp0(double* d, float* f) {
+    const double zd[2] = {0.0, -0.0};
+    const float zf[2] = {0.0f, -0.0f};
+    d[threadIdx.x] = exp(zd[threadIdx.x]);
+    f[threadIdx.x] = expf(zf[threadIdx.x]);
+}
+extern "C" int logsum_check(const void* x, void* out, long long n, int f64,
+                            void* st) {
+    const unsigned g = (unsigned)((n + 255) / 256);
+    if (f64)
+        k_check<double><<<g, 256, 0, (cudaStream_t)st>>>(
+            (const double*)x, (double*)out, n);
+    else
+        k_check<float><<<g, 256, 0, (cudaStream_t)st>>>(
+            (const float*)x, (float*)out, n);
+    return (int)cudaGetLastError();
+}
+extern "C" int exp_zero(double* d, float* f, void* st) {
+    k_exp0<<<1, 2, 0, (cudaStream_t)st>>>(d, f);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def logsum_inputs(torch, n, seed):
+    """[rows, 3] float64 arguments: every triple of the edge values
+    (zeros of both signs, +-1, +-inf, NaN, the least subnormal, exp's
+    ends, the largest float64 and float32), ties, then n random triples
+    at gaps from 1e-12 to 1e3 (and some far apart)."""
+    edge = torch.tensor([0.0, -0.0, 1.0, -1.0, float("inf"), -float("inf"),
+                         float("nan"), 5e-324, -745.2, 709.8, 1.7e308,
+                         -1.7e308, 3.4e38, -103.9], dtype=torch.float64)
+    k = edge.numel()
+    idx = torch.stack(torch.meshgrid(*(torch.arange(k),) * 3,
+                                     indexing="ij"), -1).reshape(-1, 3)
+    g = torch.Generator().manual_seed(seed)
+    base = torch.randn(n, 1, generator=g, dtype=torch.float64) * 50
+    gap = torch.randn(n, 3, generator=g, dtype=torch.float64) * 10.0 ** (
+        torch.randint(-12, 4, (n, 3), generator=g).double())
+    x = base + gap
+    x[: n // 8, 1] = x[: n // 8, 0]  # ties
+    x[n // 8: n // 4, 2] = x[n // 8: n // 4, 0] - 1e6  # one far below
+    return torch.cat([edge[idx], x])
+
+
+def bits_equal(torch, a, b):
+    """NaN where the other is NaN, every other entry the same bits (so
+    -0.0 and +0.0 differ)."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ib = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a[~nan].view(ib), b[~nan].view(ib))
+
+
+def check_logsum_identity(torch, n=1 << 22):
+    """On the card: exp(+-0.0) is 1.0 exactly (float64 and float32), and
+    log_sum2 / log_sum3 of csrc/log_common.cuh (the maximum term's exp
+    taken as 1) give the bits of the forms with an exp for every term on
+    every edge triple and on n random ones, in float64 and float32 (the
+    float32 arguments rounded from the float64 ones). Fails otherwise."""
+    import ctypes
+
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    d = cuda_lib.build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    src, so = d / "logsum_check.cu", d / "logsum_check.so"
+    src.write_text(LOGSUM_CHECK_CU)
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I",
+                    str(cuda_lib.CSRC), str(src), "-o", str(so)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.logsum_check.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.exp_zero.argtypes = [ctypes.c_void_p] * 3
+    dev = torch.device("cuda")
+    e_d = torch.empty(2, dtype=torch.float64, device=dev)
+    e_f = torch.empty(2, dtype=torch.float32, device=dev)
+    cuda_lib.check(lib.exp_zero(e_d.data_ptr(), e_f.data_ptr(),
+                                cuda_lib.stream()), "exp_zero")
+    ok = bool((e_d == 1.0).all()) and bool((e_f == 1.0).all())
+    x64 = logsum_inputs(torch, n, 29).to(dev)
+    rows = x64.shape[0]
+    same = {}
+    for name, x in (("float64", x64), ("float32", x64.float())):
+        out = torch.empty((rows, 4), dtype=x.dtype, device=dev)
+        cuda_lib.check(lib.logsum_check(x.data_ptr(), out.data_ptr(), rows,
+                                        int(x.dtype == torch.float64),
+                                        cuda_lib.stream()), "logsum_check")
+        same[name] = (bits_equal(torch, out[:, 0], out[:, 1]),
+                      bits_equal(torch, out[:, 2], out[:, 3]))
+    log(f"[logsum identity] exp(+-0.0) on the card: float64 "
+        f"{e_d.tolist()}, float32 {e_f.tolist()}; one-exp logsum2 / "
+        f"logsum3 bit-equal to the all-exp forms on {rows} triples "
+        f"(edge values, ties, random gaps): {same}")
+    if not ok or not all(all(v) for v in same.values()):
+        fail("the one-exp logsum forms differ from the all-exp forms")
+
+
+def parent_scan_lib(csrc):
+    """Another tree's scan-tier sources (log_chain.cu, maf_log.cu under
+    csrc) built into a library of their own with this package's flags,
+    and loaded: their exports as the parent tree declares them (maf_log
+    one warp a site, without a geometry)."""
+    import ctypes
+    import pathlib
+
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    csrc = pathlib.Path(csrc)
+    d = cuda_lib.build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    so = d / "parent_scan.so"
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I",
+                    str(csrc), str(csrc / "log_chain.cu"),
+                    str(csrc / "maf_log.cu"), "-o", str(so)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for name, args in (
+            ("ngsf_log_block_transfer", [P] * 5 + [I] * 4 + [P]),
+            ("ngsf_log_combine", [P] * 6 + [I] * 2 + [P]),
+            ("ngsf_log_sweep", [P] * 10 + [I] * 5 + [P]),
+            ("ngsf_maf_log_f64", [P] * 3 + [L, I, L, I, P])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def parent_geometry(S, C):
+    """The parent tree's log_geometry: nb = ceil(132 * 1024 / C) blocks
+    (at most S // 32), a second partial wave where the lanes exceed the
+    resident slots."""
+    nb = max(1, min(S // 32, -(-132 * 1024 // C)))
+    bs = -(-S // nb)
+    return bs, -(-S // bs)
+
+
+def compare_scan_kernels(torch, lib, label, e, dist_t, F_t, a_t, gl_t, N):
+    """One shape of --before: the other tree's scan-tier kernels (lib) and
+    this tree's on the same inputs, timed in turns (other, this at the
+    other's geometry, this at its own, the same again backwards); this
+    tree's chain kernels at the other's geometry must give its bits and
+    their plain versions' there, and its maf_log stay inside the maf_log
+    gates of the other's. Prints each kernel's times, the ratios and the
+    differences."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.ops import maf as tmaf
+    from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    dev = e.device
+    f64 = torch.float64
+    S, C = e.shape[0], e.shape[1]
+    timer = Timer(torch, dev)
+    st = cuda_lib.stream
+    g_p = parent_geometry(S, C)
+    g_m = thmm.log_geometry(S, C)
+    log(f"[before {label}] S={S} columns={C}: the other tree's geometry "
+        f"bs={g_p[0]} nb={g_p[1]}, this tree's bs={g_m[0]} nb={g_m[1]}")
+
+    def p_transfer(bs, nb):
+        A = torch.empty((nb, C, 2, 2), dtype=f64, device=dev)
+        cuda_lib.check(lib.ngsf_log_block_transfer(
+            e.data_ptr(), dist_t.data_ptr(), F_t.data_ptr(), a_t.data_ptr(),
+            A.data_ptr(), S, C, bs, nb, st()), "parent log_block_transfer")
+        return A
+
+    def p_combine(A):
+        nb = A.shape[0]
+        fw_in = torch.empty((nb, C, 2), dtype=f64, device=dev)
+        bw_out = torch.empty_like(fw_in)
+        ll_f = torch.empty((C,), dtype=f64, device=dev)
+        ll_b = torch.empty_like(ll_f)
+        cuda_lib.check(lib.ngsf_log_combine(
+            A.data_ptr(), F_t.data_ptr(), fw_in.data_ptr(), bw_out.data_ptr(),
+            ll_f.data_ptr(), ll_b.data_ptr(), C, nb, st()),
+            "parent log_combine")
+        return fw_in, bw_out, ll_f, ll_b
+
+    def p_sweep(fw_in, bw_out, ll_f, bs, grad):
+        nb = fw_in.shape[0]
+        p = fws = gp = None
+        if grad:
+            fws = torch.empty((S, C, 2), dtype=f64, device=dev)
+            gp = torch.empty((nb, C, 2), dtype=f64, device=dev)
+        else:
+            p = torch.empty((S, C), dtype=f64, device=dev)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        cuda_lib.check(lib.ngsf_log_sweep(
+            e.data_ptr(), dist_t.data_ptr(), F_t.data_ptr(), a_t.data_ptr(),
+            fw_in.data_ptr(), bw_out.data_ptr(), ll_f.data_ptr(), ptr(p),
+            ptr(fws), ptr(gp), S, C, bs, nb, int(grad), st()),
+            "parent log_sweep")
+        return gp if grad else p
+
+    def p_maf(gl2, ps):
+        out = torch.empty((S,), dtype=f64, device=dev)
+        cuda_lib.check(lib.ngsf_maf_log_f64(
+            gl2.data_ptr(), ps.data_ptr(), out.data_ptr(), S, N,
+            ps.stride(0), 0, st()), "parent maf_log")
+        return out
+
+    def turns(name, other, mine_at_other, mine):
+        """(other ms, this tree's at the other's geometry ms, this tree's
+        ms), each the mean of two turns."""
+        ms = {"other": [], "at": [], "mine": []}
+        outs = {}
+        for key, fn in (("other", other), ("at", mine_at_other),
+                        ("mine", mine), ("mine", mine),
+                        ("at", mine_at_other), ("other", other)):
+            outs[key], t = timer(fn)
+            ms[key].append(t)
+        m = {k: sum(v) / len(v) for k, v in ms.items()}
+        log(f"[before {label}] {name}: other tree {m['other']:.3f} ms "
+            f"({ms['other'][0]:.3f}, {ms['other'][1]:.3f}), this tree at "
+            f"its geometry {m['at']:.3f} ({m['at'] / m['other']:.3f}x), at "
+            f"this tree's geometry {m['mine']:.3f} "
+            f"({m['mine'] / m['other']:.3f}x)")
+        return outs
+
+    bs_p, nb_p = g_p
+    bs_m, nb_m = g_m
+    chain = (e, dist_t, F_t, a_t)
+    o = turns("log_block_transfer", lambda: p_transfer(bs_p, nb_p),
+              lambda: thmm.log_block_transfer(*chain, bs_p, nb_p),
+              lambda: thmm.log_block_transfer(*chain, bs_m, nb_m))
+    same = {"log_block_transfer": torch.equal(o["other"], o["at"])}
+    A_p, A_m = o["other"], o["mine"]
+    o = turns("log_combine", lambda: p_combine(A_p),
+              lambda: thmm.log_combine(A_p, F_t),
+              lambda: thmm.log_combine(A_m, F_t))
+    same["log_combine"] = all(torch.equal(a, b)
+                              for a, b in zip(o["other"], o["at"]))
+    cp, cm = o["other"], o["mine"]
+    for grad in (True, False):
+        name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
+        o = turns(name, lambda: p_sweep(*cp[:3], bs_p, grad),
+                  lambda: thmm.log_sweep(*chain, *cp[:3], bs_p, grad=grad),
+                  lambda: thmm.log_sweep(*chain, *cm[:3], bs_m, grad=grad))
+        same[name] = torch.equal(o["other"], o["at"])
+        if not grad:
+            p_mine = o["mine"]
+    del A_p, A_m, cp, cm, o
+    # and to their plain versions at that geometry
+    A_x = thmm._log_block_transfer_plain(*chain, bs_p, nb_p)
+    c_x = thmm._log_combine_plain(A_x, F_t)
+    plain = {"log_block_transfer": torch.equal(
+                 thmm.log_block_transfer(*chain, bs_p, nb_p), A_x),
+             "log_combine": all(torch.equal(a, b) for a, b in zip(
+                 thmm.log_combine(A_x, F_t), c_x))}
+    for grad in (True, False):
+        name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
+        plain[name] = torch.equal(
+            thmm.log_sweep(*chain, *c_x[:3], bs_p, grad=grad),
+            thmm._log_sweep_plain(*chain, *c_x[:3], bs_p, grad))
+    del A_x, c_x
+    log(f"[before {label}] this tree's chain kernels at the other tree's "
+        f"geometry bit-equal to the other's: {same}; to their plain "
+        f"versions there: {plain}")
+    if not all(same.values()) or not all(plain.values()):
+        fail(f"[before {label}] the chain kernels differ from the other "
+             "tree's or from their plain versions")
+    ps = check_interv(p_mine)[:, C - N:]
+    gl2 = gl_t.contiguous()
+    o = turns("maf_log", lambda: p_maf(gl2, ps),
+              lambda: tmaf.est_maf(gl_t, ps), lambda: tmaf.est_maf(gl_t, ps))
+    rel = (o["mine"] - o["other"]).abs() / o["other"].abs()
+    off = rel > LOG_MAF_RTOL
+    d_off = float((o["mine"] - o["other"])[off].abs().max()) if bool(
+        off.any()) else 0.0
+    log(f"[before {label}] maf_log against the other tree's: bit-equal "
+        f"{torch.equal(o['mine'], o['other'])}, sites differing "
+        f"{int((o['mine'] != o['other']).sum())} of {S}, max rel diff "
+        f"{float(rel[~off].max()) if not bool(off.all()) else 0.0:.3g} "
+        f"where the pass agrees, sites stopping at another pass "
+        f"{int(off.sum())} (freq max diff {d_off:.3g})")
+    if float(off.double().mean()) > MAF_FLIP_SHARE or d_off > MAF_FREQ_ATOL:
+        fail(f"[before {label}] maf_log off the other tree's")
+
+
+def compare_parent(torch, dev, args, R=20):
+    """--before CSRC: compare_scan_kernels at the scan path's shape (the
+    main data in float64) and at the scan_restart path's (R replicates of
+    the check shape's data, R * N columns; maf_log on the last
+    replicate's strided columns), against CSRC's log_chain.cu and
+    maf_log.cu. Prints no result and returns 4."""
+    from ngsf_hmm_tpu_torch.models.restart import (flatten_states,
+                                                   stack_restart_states)
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+
+    lib = parent_scan_lib(args.before)
+    f64 = torch.float64
+    gl, dist, freq, F0, a0 = simulate(args.sites, args.ind, args.seed)
+    gl_t = torch.as_tensor(gl).to(dev).to(f64)
+    del gl
+    e = calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
+    compare_scan_kernels(torch, lib, "main shape", e,
+                         torch.as_tensor(dist).to(dev, f64),
+                         torch.as_tensor(F0).to(dev, f64),
+                         torch.as_tensor(a0).to(dev, f64), gl_t, args.ind)
+    del e, gl_t
+    gl_c, dist_c, _, _, _ = simulate(args.check_sites, args.ind,
+                                     args.seed + 7, n_chrom=1)
+    step = max(2, min(100_000, args.check_sites // 2))
+    dist_c[step::step] = np.inf  # as main() makes the restart path's data
+    gl_t = torch.as_tensor(gl_c).to(dev).to(f64)
+    flat = flatten_states(stack_restart_states(gl_t, R, args.seed + 5,
+                                               device=dev))
+    compare_scan_kernels(torch, lib, f"restart shape R={R}", flat.e_prob,
+                         torch.as_tensor(dist_c).to(dev, f64),
+                         flat.indF.to(f64).contiguous(),
+                         flat.alpha.to(f64).contiguous(), gl_t, args.ind)
+    log("before: done; no result is printed for it")
+    return 4
+
+
 def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                       oracle=False, e_prob=None):
     """The scan tier's kernels (csrc/log_chain.cu, csrc/maf_log.cu) against
@@ -2663,6 +3233,8 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     err = gate("log_block_transfer", log_err(torch, A, A_p), LOG_RTOL)
     rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * C * 32,
                S * C * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
+    old_bound(results, label, "log_block_transfer", e_bytes + nb * C * 32,
+              S * C * FLOPS_LOG_OLD["log_block_transfer"])
 
     out, ms = timer(lambda: thmm.log_combine(A, F_t))
     out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
@@ -2671,6 +3243,8 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                                   for a, b in zip(out, out_p)), LOG_RTOL)
     rec.record("log_combine", err, ms, pms, nb * C * (32 + 32) + C * 24,
                nb * C * FLOPS_LOG["log_combine"], peak=PEAK_F64)
+    old_bound(results, label, "log_combine", nb * C * (32 + 32) + C * 24,
+              nb * C * FLOPS_LOG_OLD["log_combine"])
     fw_in, bw_out, ll_f, ll_b = out
     rec.finite("log_combine", ll_f, ll_b)
     sweep = chain + (fw_in, bw_out, ll_f, bs)
@@ -2691,52 +3265,29 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     rec.record("log_sweep", max(err_p, err_g), ms, pms,
                in_bytes + nb * C * 16, S * C * FLOPS_LOG["log_sweep_grad"],
                peak=PEAK_F64)
-    b_ms = max((in_bytes + S * C * 8) / PEAK_BYTES,
-               S * C * FLOPS_LOG["log_sweep"] / PEAK_F64) * 1e3
+    old_bound(results, label, "log_sweep", in_bytes + nb * C * 16,
+              S * C * FLOPS_LOG_OLD["log_sweep_grad"])
+    b_ms, b_old = (max((in_bytes + S * C * 8) / PEAK_BYTES,
+                       S * C * fl["log_sweep"] / PEAK_F64) * 1e3
+                   for fl in (FLOPS_LOG, FLOPS_LOG_OLD))
     results["log_sweep"]["posterior_mode"] = dict(
-        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, max_abs_err=err_p)
+        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, bound_old_ms=b_old,
+        max_abs_err=err_p)
     log(f"[{label}] log_sweep posterior mode: max diff {err_p:.3g}, kernel "
-        f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms")
+        f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms (the "
+        f"parent tree's forms {b_old:.4f})")
     del A, A_p, out_p, p_p, g_p
 
     # ---- maf_log on the chain's snapped posterior (of the last replicate
     # where the columns hold R of them: a strided view, read in place)
     ps_all = check_interv(p)
     ps = ps_all[:, C - N:]
-    f_k, ms = timer(lambda: tmaf.est_maf(gl_t, ps))
-    f_p, pms = timer(lambda: tmaf._est_maf_plain(gl_t, ps), reps=1, warm=0)
-    rec.finite("maf_log", f_k, f_p)
-    rel = (f_k - f_p).abs() / f_p.abs()
-    off = rel > LOG_MAF_RTOL
-    share = float(off.double().mean())
-    d_off = float((f_k - f_p)[off].abs().max()) if bool(off.any()) else 0.0
-    err = float(rel[~off].max())
-    log(f"[{label}] maf_log: sites stopping at another pass {share:.3g} "
-        f"of {S}, their freq max diff {d_off:.3g}")
-    if share > MAF_FLIP_SHARE or d_off > MAF_FREQ_ATOL:
-        fail(f"maf_log [{label}]: {share} of the sites off the plain "
-             f"version, by up to {d_off}")
-    passes = maf_log_passes(torch, gl_t, ps)
-    rec.record("maf_log", err, ms, pms, S * N * 32 + S * 8,
-               int(passes.sum()) * N * FLOPS_LOG["maf_log"], peak=PEAK_F64)
-    log(f"[{label}] maf_log: passes a site min {int(passes.min())}, mean "
-        f"{float(passes.double().mean()):.2f}, max {int(passes.max())}")
+    f_k, _ = check_maf_log(torch, label, gl_t, ps, rec, timer)
     # the same columns strided (replicate 1 of R = 2), or contiguous
     other = (tmaf.est_maf(gl_t, torch.cat([ps * 0.5, ps], dim=1)[:, N:])
              if C == N else tmaf.est_maf(gl_t, ps.contiguous()))
     if not torch.equal(other, f_k):
         fail(f"maf_log [{label}]: strided replicate columns differ")
-    f32 = torch.float32
-    f_k32 = tmaf.est_maf(gl_t.to(f32), ps.to(f32))
-    f_p32 = tmaf._est_maf_plain(gl_t.to(f32), ps.to(f32))
-    rel32 = (f_k32 - f_p32).abs() / f_p32.abs()
-    share32 = float((rel32 > MAF_RTOL).double().mean())
-    d32 = float((f_k32 - f_p32).abs().max())
-    log(f"[{label}] maf_log float32: sites off by more than {MAF_RTOL} "
-        f"{share32:.3g}, freq max diff {d32:.3g}")
-    if share32 > MAF_FLIP_SHARE or d32 > MAF_FREQ_ATOL:
-        fail(f"maf_log float32 [{label}]: {share32} of the sites off, by "
-             f"up to {d32}")
     del p, g, ps, ps_all, other
 
     if not oracle:
@@ -3273,7 +3824,8 @@ def against_parent(path, label="main"):
 
 # the paths whose final freqs --maf-anchor writes and --against-maf holds
 # (freq_e: the fused tier's --freq e initial estimate at the main shape)
-ANCHOR_PATHS = ("main", "bf16", "exact", "ld", "ld2", "restart", "freq_e")
+ANCHOR_PATHS = ("main", "bf16", "exact", "ld", "ld2", "restart", "freq_e",
+                "scan", "scan_restart")
 # the fused tier's CLI runs (--freq e) whose outputs it keeps and holds
 ANCHOR_CLI = ("cli", "cli_ld")
 
@@ -3283,8 +3835,9 @@ def run_maf_anchor(torch, dev, args):
     (est_maf_exact at the exact path's shape, macro_slab and est_maf_slab
     at the main path's, est_maf_slab on bfloat16 slabs, est_maf_rows on
     the LD path's rows), then the main (without the writers), bf16, exact,
-    ld, ld2 and restart paths, the fused tier's --freq e estimate at the
-    main shape and its CLI runs with --freq e (one run, and the LD path),
+    ld, ld2, restart, scan and scan_restart paths, the fused tier's
+    --freq e estimate at the main shape and its CLI runs with --freq e
+    (one run, and the LD path),
     on this tree's package or on --tree's; writes the anchor's readings
     (anchor.json), the paths' final freqs ({label}_freq.npy) and the CLI
     runs' outputs ({tag}.indF, {tag}.ibd) under OUT for --against-maf,
@@ -3321,13 +3874,15 @@ def run_maf_anchor(torch, dev, args):
                                      gl=gl, device=dev)
     log(f"[freq_e] the --freq e estimate at S={gl.shape[0]} N={gl.shape[1]} "
         f"{gl.dtype}: mean {FINAL_FREQ['freq_e'].mean():.6f}")
+    run_scan_path(torch, dev, gl, dist, freq, F0, a0)
     del gl
     gl_c, dist_c, freq_c, _, _ = simulate(args.check_sites, args.ind,
                                           args.seed + 7, n_chrom=1)
     step = max(2, min(100_000, args.check_sites // 2))
     dist_c[step::step] = np.inf  # as main() makes the restart path's data
-    run_restart_path(torch, dev, gl_c, dist_c, freq_c, 3 if dev.type ==
-                     "cpu" else 20, args.seed + 5)
+    for scan in (False, True):
+        run_restart_path(torch, dev, gl_c, dist_c, freq_c, 3 if dev.type ==
+                         "cpu" else 20, args.seed + 5, scan=scan)
     tree = os.path.abspath(args.tree) if args.tree else None
     run_cli(dev, args.seed, keep=out / "cli", cwd=tree)
     run_cli(dev, args.seed, ld=True, keep=out / "cli_ld", cwd=tree)
@@ -3789,6 +4344,10 @@ def main():
     ap.add_argument("--probe-build", metavar="CSRC",
                     help="only probe_build, on another tree's csrc "
                     "directory; exits 4")
+    ap.add_argument("--before", metavar="CSRC",
+                    help="only the scan tier's kernels timed against "
+                    "another tree's (its csrc directory) in turns at the "
+                    "scan and scan_restart shapes; exits 4")
     ap.add_argument("--probes", action="store_true",
                     help="only the build, transfer and est_maf probes at "
                     "the main and restart shapes; exits 4")
@@ -3867,8 +4426,11 @@ def main():
         probe_transcendentals()
         log(f"[probe build] done in {time.perf_counter() - t0:.1f} s")
         check_window_division(torch)
+        check_logsum_identity(torch)
         if args.probes:
             return run_probes(torch, dev, args)
+        if args.before:
+            return compare_parent(torch, dev, args)
 
     # ---- phase 3: every kernel against its plain version
     results = {}
@@ -3903,6 +4465,9 @@ def main():
     dist_o[S_o // 2] = 0.0  # a site at distance 0: the identity
     check_log_kernels(torch, dev, gl_o, dist_o, freq_o, F0_o, a0_o,
                       "oracle shape", {}, oracle=True)
+    # maf_log at every segment width its geometry chooses
+    check_maf_log_shapes(torch, dev, args.seed + 31, results, tuple(
+        (n, 101) for n, _ in MAF_LOG_NS) if args.rehearse else MAF_LOG_NS)
     log(f"[scan check] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4080,7 +4645,7 @@ def main():
             "launches_per_path": {p: int(c.get(name, 0))
                                   for p, c in paths.items()},
         })
-        for extra in ("ms_by_shape", "posterior_mode"):
+        for extra in ("ms_by_shape", "posterior_mode", "bound_old_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[total] {time.perf_counter() - t_script:.1f} s from the start to "

@@ -156,18 +156,19 @@ def loglik_value_and_grad_sites(F, alpha, e_prob, dist):
 # The scan tier: the blocked log-space chain (csrc/log_chain.cu)
 # ---------------------------------------------------------------------------
 
-# (block, column) lanes the geometry aims for: about one resident lane per
-# thread slot of a 132-SM card at 1024 threads each
-LOG_LANES_TARGET = 132 * 1024
+# (block, column) lanes the geometry aims for: one wave of the lane
+# kernels' resident thread slots on a 132-SM card (the CTAs an SM their
+# launch bounds ask for); fewer blocks shorten log_combine's serial walk
+LOG_LANES_TARGET = 132 * cuda_lib.LOG_CHAIN_CTAS * cuda_lib.LOG_CHAIN_THREADS
 LOG_MIN_BS = 32  # shortest within-block chain worth a lane
 
 
 def log_geometry(S, C):
     """(bs, nb) of the blocked chain for S sites and C columns: nb blocks of
-    bs sites, nb * C lanes near LOG_LANES_TARGET, bs at least LOG_MIN_BS
-    (one block below that), every block holding at least one site (the
-    last one the rest)."""
-    nb = max(1, min(S // LOG_MIN_BS, -(-LOG_LANES_TARGET // C)))
+    bs sites, nb * C lanes at most LOG_LANES_TARGET (but one block at
+    least), bs at least LOG_MIN_BS (one block below that), every block
+    holding at least one site (the last one the rest)."""
+    nb = max(1, min(S // LOG_MIN_BS, LOG_LANES_TARGET // C))
     bs = -(-S // nb)
     return bs, -(-S // bs)
 
@@ -318,8 +319,10 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
     snapped); grad=True: the Fisher-identity sums of dL/dF and dL/dalpha
     over each block, [nb, C, 2] (block 0 with the initial-distribution
     term; loglik_value_and_grad_sites' docstring). CUDA tensors: float64
-    kernel (the grad call takes a [S, C, 2] scratch for the forward
-    values); CPU tensors: the plain version."""
+    kernel (a scratch of the sites' log transitions, which the backward
+    pass reads in place of computing them again, and with grad their
+    forward values: [S, 6, C], [S, 4, C] without); CPU tensors: the plain
+    version."""
     if not e_prob.is_cuda:
         return _log_sweep_plain(e_prob, dist, F, alpha, fw_in, bw_out, ll_f,
                                 bs, grad)
@@ -331,9 +334,10 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
                            ("ll_f", ll_f, (C,))):
         cuda_lib.require(t, f"log_sweep.{name}", torch.float64, shape)
     dev = e_prob.device
-    p = fws = gpart = None
+    p = gpart = None
+    ws = torch.empty((S, 6 if grad else 4, C), dtype=torch.float64,
+                     device=dev)
     if grad:
-        fws = torch.empty((S, C, 2), dtype=torch.float64, device=dev)
         gpart = torch.empty((nb, C, 2), dtype=torch.float64, device=dev)
     else:
         p = torch.empty((S, C), dtype=torch.float64, device=dev)
@@ -341,7 +345,8 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
     rc = cuda_lib.load().ngsf_log_sweep(
         e_prob.data_ptr(), dist.data_ptr(), F.data_ptr(), alpha.data_ptr(),
         fw_in.data_ptr(), bw_out.data_ptr(), ll_f.data_ptr(), ptr(p),
-        ptr(fws), ptr(gpart), S, C, bs, nb, int(grad), cuda_lib.stream())
+        ws.data_ptr(), ptr(gpart), S, C, bs, nb, int(grad),
+        cuda_lib.stream())
     cuda_lib.check(rc, "log_sweep")
     LAUNCHES["log_sweep"] += 1
     return gpart if grad else p

@@ -19,7 +19,8 @@ grow across rounds because the damped ~1/k iterate slows down.
 The exact log-space fixed point (``linear=False``, ``macro=False``: the
 scan tier's freq M-step, ``--freq e``, the LD path's site 0) runs the
 kernel of csrc/maf_log.cu for CUDA tensors (float64, or float32 on the
-fused tier) and the plain vectorised torch below for CPU tensors. The
+fused tier; G lanes a site, ``maf_log_geometry``) and the plain
+vectorised torch below for CPU tensors. The
 other modes are plain torch: the tests' references (on the card too);
 inside the fused tier's EM loop the freq M-step runs the kernels of
 ops/maf_kernels.py. The plain loop's condition ``any(active)`` is one
@@ -191,13 +192,47 @@ def _est_maf_plain(gl_s, indF, ignore_miss_data=False, linear=False,
     return st[0]
 
 
+# maf_log's launch (csrc/maf_log.cu): the least share of a warp's lane
+# slots that hold an individual; the shared memory a warp may keep its
+# sites' cells in (past it the cells are read from device memory every
+# pass), and a CTA's target (up to 4 CTAs an SM).
+MAF_LOG_FILL = 0.9
+MAF_LOG_SMEM_MAX = 96 * 1024
+MAF_LOG_SMEM_CTA = 56 * 1024
+
+
+def maf_log_geometry(N):
+    """(G, C) of maf_log for N individuals: a site's segment of G lanes
+    (a power of two up to 32, 32 / G sites a warp), each lane holding C =
+    ceil(N / G) cells (individuals s, s + G, ...): the widest segment
+    whose G C slots are at least MAF_LOG_FILL full (G = 1 always is)."""
+    for G in (32, 16, 8, 4, 2, 1):
+        C = -(-N // G)
+        if N >= MAF_LOG_FILL * G * C:
+            return G, C
+
+
+def maf_log_launch(N, esz):
+    """(G, C, warps a CTA, dynamic shared memory a CTA in bytes) of
+    maf_log for N individuals of esz-byte floats: a warp's 32 / G sites
+    hold their 4 planes of G C cells in shared memory (128 C esz bytes a
+    warp); past MAF_LOG_SMEM_MAX, G = 32 and 0 bytes (the cells read from
+    device memory every pass)."""
+    G, C = maf_log_geometry(N)
+    per_warp = 128 * C * esz
+    if per_warp > MAF_LOG_SMEM_MAX:
+        return 32, -(-N // 32), 8, 0
+    warps = max(1, min(8, MAF_LOG_SMEM_CTA // per_warp))
+    return G, C, warps, warps * per_warp
+
+
 def maf_log(gl_s, indF, ignore_miss_data=False):
     """est_maf(gl_s, indF, ignore_miss_data) in log space without macro,
-    on the card (csrc/maf_log.cu, one warp a site). gl_s [.., N, 3] (made
-    contiguous); indF [.., N] (a [S, N] view whose rows are strided, as a
-    replicate's columns of a flattened posterior, is read in place), or
-    None for F = 0. float64 or float32, both of one dtype. Returns freq
-    [..]."""
+    on the card (csrc/maf_log.cu, G lanes a site: maf_log_launch). gl_s
+    [.., N, 3] (made contiguous); indF [.., N] (a [S, N] view whose rows
+    are strided, as a replicate's columns of a flattened posterior, is
+    read in place), or None for F = 0. float64 or float32, both of one
+    dtype. Returns freq [..]."""
     lead, N = gl_s.shape[:-2], gl_s.shape[-2]
     dt, dev = gl_s.dtype, gl_s.device
     if dt not in (torch.float32, torch.float64):
@@ -216,10 +251,11 @@ def maf_log(gl_s, indF, ignore_miss_data=False):
                          f"tensor, got {F.dtype} {tuple(F.shape)} on "
                          f"{F.device}")
     out = torch.empty((S,), dtype=dt, device=dev)
+    G, _, warps, smem = maf_log_launch(N, gl2.element_size())
     lib = cuda_lib.load()
     fn = lib.ngsf_maf_log_f64 if dt == torch.float64 else lib.ngsf_maf_log_f32
     rc = fn(gl2.data_ptr(), F.data_ptr(), out.data_ptr(), S, N, F.stride(0),
-            int(bool(ignore_miss_data)), cuda_lib.stream())
+            int(bool(ignore_miss_data)), G, warps, smem, cuda_lib.stream())
     cuda_lib.check(rc, "maf_log")
     LAUNCHES["maf_log"] += 1
     return out.reshape(lead)

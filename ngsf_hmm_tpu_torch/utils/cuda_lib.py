@@ -53,12 +53,18 @@ HEADERS = ("cp_async.cuh", "gl_load.cuh", "hmm_common.cuh", "log_common.cuh",
 # chunks of one CTA of the two-level combine: csrc/combine_blocks.cu is
 # built with it (CB_MAXC), models/hmm_kernels.py sizes its chunks by it
 COMBINE_MAX_CHUNKS = 128
+# the scan tier's lane kernels (csrc/log_chain.cu): threads a CTA, and the
+# CTAs an SM their launch bounds ask for; models/hmm.py:log_geometry gives
+# at most one wave of such lanes
+LOG_CHAIN_THREADS = 128
+LOG_CHAIN_CTAS = 5
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
 # multiply-adds differently.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", f"-DCB_MAXC={COMBINE_MAX_CHUNKS}",
+    f"-DLC_THREADS={LOG_CHAIN_THREADS}", f"-DLC_CTAS={LOG_CHAIN_CTAS}",
 )
 
 LAUNCHES = collections.Counter()
@@ -88,8 +94,8 @@ _SIGNATURES = {
     "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
     "ngsf_log_combine": [_P] * 6 + [_I] * 2 + [_P],
     "ngsf_log_sweep": [_P] * 10 + [_I] * 5 + [_P],
-    "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L, _I, _P],
-    "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L, _I, _P],
+    "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
+    "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
 }
 # the bfloat16 gl exports take the same arguments as their float32 ones
 _SIGNATURES.update({

@@ -73,10 +73,11 @@ def test_geometry():
         bs, nb = t_hmm.log_geometry(S_, C)
         assert nb * bs >= S_ and (nb - 1) * bs < S_  # no empty block
         assert nb == 1 or bs >= t_hmm.LOG_MIN_BS
-        assert nb * C <= t_hmm.LOG_LANES_TARGET + C or nb == 1
-    # the scan path's and the restart path's shapes fill the card
-    assert t_hmm.log_geometry(1_000_000, 100) == (740, 1352)
-    assert t_hmm.log_geometry(200_003, 2_000) == (2942, 68)
+        assert nb * C <= t_hmm.LOG_LANES_TARGET or nb == 1
+    # the scan path's and the restart path's shapes fill one wave of the
+    # lane kernels' resident slots
+    assert t_hmm.log_geometry(1_000_000, 100) == (1185, 844)
+    assert t_hmm.log_geometry(200_003, 2_000) == (4762, 42)
 
 
 def test_forward_loglik_matches_jax(case):
@@ -197,6 +198,88 @@ def test_est_maf_log_matches_jax(case):
     flat = torch.cat([_t(p) * 0.5, _t(p)], dim=1)  # replicate 1 of R = 2
     got2 = t_maf.est_maf(_t(gl), flat[:, N:])
     assert torch.equal(got2, torch.as_tensor(got))
+
+
+def test_maf_log_geometry_covers_every_individual():
+    """maf_log's segments (ops/maf.maf_log_geometry): lane s of a site's
+    G lanes holds individuals s, s + G, ..., C of them, which covers every
+    individual exactly once and fills at least 90% of the lane slots; a
+    warp's cells fit the shared memory of a CTA. One N for each segment
+    width the scan path's shapes and chip_smoke.py's use."""
+    for N, G in ((20, 4), (33, 4), (100, 8), (130, 16), (1000, 32)):
+        g, C = t_maf.maf_log_geometry(N)
+        assert (g, C) == (G, -(-N // G))
+        cells = [s + G * k for s in range(G) for k in range(C)
+                 if s + G * k < N]
+        assert sorted(cells) == list(range(N))
+        assert N / (G * C) >= t_maf.MAF_LOG_FILL
+        for esz in (8, 4):
+            g2, C2, warps, smem = t_maf.maf_log_launch(N, esz)
+            assert (g2, C2) == (G, C) and 1 <= warps <= 8
+            assert smem == warps * 128 * C * esz <= 227 * 1024
+    # past the shared memory a warp may hold, the cells are read from
+    # device memory, one site a warp
+    assert t_maf.maf_log_launch(4000, 8) == (32, 125, 8, 0)
+
+
+def _logsum2_one_exp(a, b):
+    """csrc/log_common.cuh's log_sum2 in torch: the term equal to the
+    maximum is 1 + (m - m), not exp(0)."""
+    m = torch.maximum(a, b)
+    e = torch.exp(torch.where(a == m, b, a) - m)
+    return _guard_ninf(torch.log(1.0 + (m - m) + e) + m, m)
+
+
+def _logsum3_one_exp(a, b, c):
+    """log_common.cuh's log_sum3 in torch: the first term equal to the
+    maximum is 1 + (m - m), the other two exps, each in its place."""
+    m = torch.maximum(torch.maximum(a, b), c)
+    one = 1.0 + (m - m)
+    am = a == m
+    abm = am | (b == m)
+    ex = torch.exp(torch.where(am, b, a) - m)
+    ey = torch.exp(torch.where(abm, c, b) - m)
+    s = torch.where(abm, (one + ex) + ey, (ex + ey) + one)
+    return _guard_ninf(torch.log(s) + m, m)
+
+
+def _guard_ninf(out, m):
+    return torch.where(torch.isneginf(m), torch.full_like(out, -torch.inf),
+                       out)
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int64), b[~nan].view(torch.int64))
+
+
+def test_one_exp_logsum_forms_equal_ops_logsum_bit_for_bit():
+    """The maximum term's exp(x - m) is exp(+0.0) == 1.0 for a finite m,
+    so the kernels' one-exp-fewer logsum2 / logsum3 give ops/logsum's
+    bits on every input: every triple of edge values (signed zeros, +-1,
+    +-inf, NaN, a subnormal, exp's ends, the largest float64), ties, and
+    random arguments at gaps from 1e-12 to 1e3, in float64."""
+    from ngsf_hmm_tpu_torch.ops import logsum as t_logsum
+
+    assert torch.exp(torch.tensor([0.0, -0.0], dtype=torch.float64)).eq(
+        1.0).all()
+    edge = torch.tensor([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan,
+                         5e-324, -745.2, 709.8, 1.7e308, -1.7e308],
+                        dtype=torch.float64)
+    k = edge.numel()
+    idx = torch.stack(torch.meshgrid(*(torch.arange(k),) * 3,
+                                     indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(43)
+    n = 20_000
+    x = rng.normal(0, 50, (n, 1)) + rng.normal(0, 1, (n, 3)) * 10.0 ** (
+        rng.integers(-12, 4, (n, 3)))
+    x[: n // 8, 1] = x[: n // 8, 0]  # ties
+    x[n // 8: n // 4, 2] = x[n // 8: n // 4, 0] - 1e6  # one far below
+    t = torch.cat([edge[idx], torch.as_tensor(x)])
+    a, b, c = t.unbind(1)
+    assert _same_bits(_logsum2_one_exp(a, b), t_logsum.logsum2(a, b))
+    assert _same_bits(_logsum3_one_exp(a, b, c), t_logsum.logsum3(a, b, c))
 
 
 def test_plain_calls_counted_under_the_kernel_names(case):
