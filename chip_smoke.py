@@ -117,12 +117,14 @@ needs one CUDA device and nvcc. It
      then once on the default tier (the float64 scan tier).
 --against LOG also holds main's streams per iteration, final tot_lkl
 and Viterbi IBD share to another tree's log of the same run (the parent's,
-in one call). --before CSRC builds another tree's log_chain.cu and
-maf_log.cu (the parent's) beside this tree's and times both in turns at
-the scan and scan_restart shapes, this tree's chain kernels also at the
-other tree's geometry, where they must give its bits and their plain
-versions', and maf_log inside its gates of the other's; exits 4. --probes runs only the measurements
-and exits 4;
+in one call). --before DIR times the scan tier's kernels of another
+tree's package (DIR's, the parent's) and of this tree's in turns (DIR,
+this, this, DIR; one process each, --scan-times OUT [--tree DIR]
+[--against-times REF]) at the scan and scan_restart shapes, each tree
+through its own wrappers at its own geometry; this tree's chain kernels
+must give the other's bits at the other's geometry and maf_log stay
+inside its gates of the other's; exits 4. --probes runs only the
+measurements and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
 --maf-anchor OUT [--tree DIR] runs only the float64 anchor, the main
 (without the writers), bf16, exact, ld, ld2, restart, scan and
@@ -300,14 +302,11 @@ ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
 # from their SASS on the card (the CPU rehearsal keeps the estimate of 20
 # each below). logsum2 = exp + log + max, a subtraction, 1 + (m - m) in
 # place of the maximum term's exp (log_common.cuh), 2 adds; logsum3 the
-# same with 2 exps; one_exp=False counts the parent tree's forms (an exp
-# for every term: logsum2 2 exp + log + max, 2 subtractions, 2 adds),
-# the old bounds printed beside the new. The site's decay and four log
-# transitions 1 + exp + 6 + 4 log; a forward or backward step of a
-# 2-vector 2 logsum2 + 6 adds.
-def flops_log(E, L, one_exp=True):
-    logsum2 = E + L + 6 if one_exp else 2 * E + L + 5
-    logsum3 = 2 * E + L + 9 if one_exp else 3 * E + L + 8
+# same with 2 exps. The site's decay and four log transitions 1 + exp +
+# 6 + 4 log; a forward or backward step of a 2-vector 2 logsum2 + 6 adds.
+def flops_log(E, L):
+    logsum2 = E + L + 6
+    logsum3 = 2 * E + L + 9
     site = 7 + E + 4 * L
     step = 2 * logsum2 + 6
     return {
@@ -315,16 +314,13 @@ def flops_log(E, L, one_exp=True):
         "log_block_transfer": site + 2 * step,
         # per (block, column): the forward and the backward walk
         "log_combine": 2 * step,
-        # per (site, column): the site and a step forward, again backward,
-        # then p = exp(fw1 + bw1 - L) (posterior mode) or the four u terms
-        # and the two sums (grad mode)
-        "log_sweep": 2 * (site + step) + 2 + E,
-        "log_sweep_grad": 2 * (site + step) + 4 + 4 * (E + 1) + 17,
-        # per (site, individual, pass), every cell taking its own prior
-        # logs (the parent tree's maf_log): calc_hwe 10 + 3 log,
-        # post_prob's logsum3 and 3 adds, 2 exp of 2 differences, the
-        # sums 5
-        "maf_log": 10 + 3 * L + 3 + logsum3 + 2 * (E + 1) + 5,
+        # per (site, column): the site (once: the backward pass reads its
+        # transitions where the forward pass parked them) and a step
+        # forward and backward, then p = exp(fw1 + bw1 - L) (posterior
+        # mode) or the decay again, the four u terms and the two sums
+        # (grad mode)
+        "log_sweep": site + 2 * step + 2 + E,
+        "log_sweep_grad": site + 2 * step + 1 + E + 4 + 4 * (E + 1) + 17,
         # maf_log as csrc/maf_log.cu runs it: per (site, individual, pass)
         # post_prob and the sums; per (site, individual, pass) whose F is
         # neither 0 nor 1 its own calc_hwe; per (site, pass) the five
@@ -337,7 +333,6 @@ def flops_log(E, L, one_exp=True):
 
 
 FLOPS_LOG = flops_log(20, 20)
-FLOPS_LOG_OLD = flops_log(20, 20, one_exp=False)
 
 # one float64 exp and one float64 log, each alone in a kernel
 TRANSCENDENTAL_PROBE_CU = r"""
@@ -1348,26 +1343,23 @@ def window_probe_line(nice, props, loops, shapes, source):
         f"{floors}{other}")
 
 
-def log_probe_line(nice, props, loops, shapes, source):
+def log_probe_line(nice, props, loops, shapes):
     """probe_build's line for a scan-tier kernel (log_chain.cu,
     maf_log.cu) at each shape: registers, spills, shared memory, resident
     CTAs, waves, and its three largest SASS loops with their commonest
     opcodes (the float64 DFMA / DADD / DMUL and MUFU among them). The
     chain kernels run a thread a (block, column) lane (the combine a
     thread a column and direction); maf_log runs the geometry its
-    template arguments name (maf_log_launch) or, in a tree whose kernel
-    gives a site one warp, ML_WARPS warps a CTA."""
+    template arguments name (maf_log_launch)."""
     import re
 
     if not loops:
         return
     n_ins, lp, _, _ = loops
+    from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
-    # a tree whose source defines its CTA size (the parent's), else the
-    # build's flag
-    m = re.search(r"#define LC_THREADS (\d+)", source)
-    lc = int(m.group(1)) if m else cuda_lib.LOG_CHAIN_THREADS
+    lc = cuda_lib.LOG_CHAIN_THREADS
     for label, sh in shapes.items():
         smem = props["smem"]
         if "k_log_combine" in nice:
@@ -1380,16 +1372,11 @@ def log_probe_line(nice, props, loops, shapes, source):
             args = re.search(r"k_maf_log<([^>]*)>", nice)
             ints = [int(a) for a in re.findall(r"\(int\)(\d+)",
                                                 args.group(1))] if args else []
-            if ints:
-                from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
-                G, C, warps, dyn = maf_log_launch(sh["N"], 8)
-                if ints[0] != G:
-                    continue
-                threads, smem = 32 * warps, smem + dyn
-                total = -(-sh["S"] * G // 32) * 32
-            else:
-                w = re.search(r"#define ML_WARPS (\d+)", source)
-                threads, total = 32 * int(w.group(1) if w else 8), 32 * sh["S"]
+            G, C, warps, dyn = maf_log_launch(sh["N"], 8)
+            if not ints or ints[0] != G:
+                continue
+            threads, smem = 32 * warps, smem + dyn
+            total = -(-sh["S"] * G // 32) * 32
         ctas = resident_ctas(props["regs"], threads, smem)
         waves = total / (SM_COUNT * ctas * threads) if ctas else float("inf")
         top = "; ".join(
@@ -1484,8 +1471,7 @@ def probe_build(lanes_by_source, csrc=None):
                                   (csrc / src).read_text())
                 continue
             if src in LOG_PROBE_SOURCES:
-                log_probe_line(nice, p, loops.get(name), shapes,
-                               (csrc / src).read_text())
+                log_probe_line(nice, p, loops.get(name), shapes)
                 continue
             n_ins, lp, flat, _ = loops.get(name, (0, [], 0, []))
             threads = 256 if "maf" in src else 128
@@ -1585,10 +1571,8 @@ def probe_transcendentals():
             f"{fast.get('MUFU', 0)}, {sum(fast.values())} instructions), "
             f"{ops(rest)} more in the branches after it")
     FLOPS_LOG.update(flops_log(*got))
-    FLOPS_LOG_OLD.update(flops_log(*got, one_exp=False))
     log(f"[probe build] float64 operations a (site, column) of the scan "
-        f"tier's kernels: {json.dumps(FLOPS_LOG)}; the parent tree's forms "
-        f"(an exp for every logsum term): {json.dumps(FLOPS_LOG_OLD)}")
+        f"tier's kernels: {json.dumps(FLOPS_LOG)}")
     return tuple(got)
 
 
@@ -2713,14 +2697,6 @@ def maf_log_passes(torch, gl, p):
     return passes
 
 
-def old_bound(results, label, name, nbytes, flops):
-    """Sets beside a scan-tier kernel's bound the one its work had in the
-    parent tree's forms (an exp for every logsum term; FLOPS_LOG_OLD)."""
-    ms = max(nbytes / PEAK_BYTES, flops / PEAK_F64) * 1e3
-    results[name]["bound_old_ms"] = ms
-    log(f"[{label}] {name}: bound in the parent tree's forms {ms:.4f} ms")
-
-
 def maf_log_warp_passes(torch, passes, N):
     """The passes maf_log's warps run for these sites' `passes`, and the
     sites a warp: a warp holds 32 / G consecutive sites (maf_log_launch)
@@ -2744,10 +2720,9 @@ def check_maf_log(torch, label, gl_t, ps, rec=None, timer=None):
     MAF_FREQ_ATOL); then the float32 instance against its plain version
     (MAF_RTOL, MAF_FLIP_SHARE, MAF_FREQ_ATOL). With rec: timed beside its
     bound, counted from the passes this data needs (maf_log_passes) and
-    its cells whose F is neither 0 nor 1 (maf_log_cell, _own, _site), and
-    the parent tree's (every cell its own prior logs, an exp for every
-    logsum3 term); prints the passes the warps run against those needed
-    and the share of such cells. Returns (freq, the largest relative
+    its cells whose F is neither 0 nor 1 (maf_log_cell, _own, _site);
+    prints the passes the warps run against those needed and the share of
+    such cells. Returns (freq, the largest relative
     difference at the sites that stop at the same pass)."""
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
 
@@ -2781,9 +2756,6 @@ def check_maf_log(torch, label, gl_t, ps, rec=None, timer=None):
                                + FLOPS_LOG["maf_log_site"])).sum())
         rec.record(name, err, ms, pms, S * N * 32 + S * 8, flops,
                    peak=PEAK_F64)
-        rec.results[name]["bound_old_ms"] = max(
-            (S * N * 32 + S * 8) / PEAK_BYTES,
-            int(passes.sum()) * N * FLOPS_LOG_OLD["maf_log"] / PEAK_F64) * 1e3
         run, spw = maf_log_warp_passes(torch, passes, N)
         need = int(passes.sum())
         log(f"[{label}] maf_log: passes a site min {int(passes.min())}, "
@@ -2791,9 +2763,7 @@ def check_maf_log(torch, label, gl_t, ps, rec=None, timer=None):
             f"{int(passes.max())}; the warps run {run} site-passes for "
             f"{need} needed ({run / need:.4f}x, {spw} sites a warp); cells "
             f"whose F is neither 0 nor 1 (their own prior logs) "
-            f"{float(own.sum()) / (S * N):.4f}; bound in the "
-            f"parent tree's count {rec.results[name]['bound_old_ms']:.4f} "
-            f"ms")
+            f"{float(own.sum()) / (S * N):.4f}")
     f32 = torch.float32
     f_k32 = tmaf.est_maf(gl_t.to(f32), ps.to(f32))
     f_p32 = tmaf._est_maf_plain(gl_t.to(f32), ps.to(f32))
@@ -2809,10 +2779,11 @@ def check_maf_log(torch, label, gl_t, ps, rec=None, timer=None):
 
 
 # maf_log's shapes beyond the paths': one for each segment width G that
-# maf_log_geometry chooses at these N (4, 4, 8, 16, 32), and N = 4,000,
-# whose cells are read from device memory every pass (maf_log_launch)
-MAF_LOG_NS = ((20, 33_333), (33, 33_333), (100, 33_333), (130, 33_333),
-              (1_000, 10_007), (4_000, 1_001))
+# maf_log_geometry chooses (N = 3, 9, 20, 33, 100, 130, 1,000: G = 1, 2,
+# 4, 4, 8, 16, 32), and N = 4,000, whose cells are read from device
+# memory every pass (maf_log_launch)
+MAF_LOG_NS = ((3, 33_333), (9, 33_333), (20, 33_333), (33, 33_333),
+              (100, 33_333), (130, 33_333), (1_000, 10_007), (4_000, 1_001))
 
 
 def check_maf_log_shapes(torch, dev, seed, results, Ns=MAF_LOG_NS):
@@ -2965,209 +2936,127 @@ def check_logsum_identity(torch, n=1 << 22):
         fail("the one-exp logsum forms differ from the all-exp forms")
 
 
-def parent_scan_lib(csrc):
-    """Another tree's scan-tier sources (log_chain.cu, maf_log.cu under
-    csrc) built into a library of their own with this package's flags,
-    and loaded: their exports as the parent tree declares them (maf_log
-    one warp a site, without a geometry)."""
-    import ctypes
-    import pathlib
-
-    from ngsf_hmm_tpu_torch.utils import cuda_lib
-
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    csrc = pathlib.Path(csrc)
-    d = cuda_lib.build_dir()
-    d.mkdir(parents=True, exist_ok=True)
-    so = d / "parent_scan.so"
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-I",
-                    str(csrc), str(csrc / "log_chain.cu"),
-                    str(csrc / "maf_log.cu"), "-o", str(so)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    for name, args in (
-            ("ngsf_log_block_transfer", [P] * 5 + [I] * 4 + [P]),
-            ("ngsf_log_combine", [P] * 6 + [I] * 2 + [P]),
-            ("ngsf_log_sweep", [P] * 10 + [I] * 5 + [P]),
-            ("ngsf_maf_log_f64", [P] * 3 + [L, I, L, I, P])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+# the scan tier's kernels that --before times, in this order
+SCAN_TIMED = ("log_block_transfer", "log_combine", "log_sweep (grad)",
+              "log_sweep (posterior)", "maf_log")
 
 
-def parent_geometry(S, C):
-    """The parent tree's log_geometry: nb = ceil(132 * 1024 / C) blocks
-    (at most S // 32), a second partial wave where the lanes exceed the
-    resident slots."""
-    nb = max(1, min(S // 32, -(-132 * 1024 // C)))
-    bs = -(-S // nb)
-    return bs, -(-S // bs)
+def bit_digest(torch, t):
+    """Two wrapping int64 sums of t's bits, plain and weighted by odd
+    positions: equal bits give equal sums, and other bits at any entries
+    change them but for a chance near 2^-64."""
+    ib = torch.int64 if t.element_size() == 8 else torch.int32
+    x = t.contiguous().view(-1).view(ib).long()
+    w = torch.arange(1, 2 * x.numel(), 2, device=x.device)
+    return [int(x.sum()), int((x * w).sum())]
 
 
-def compare_scan_kernels(torch, lib, label, e, dist_t, F_t, a_t, gl_t, N):
-    """One shape of --before: the other tree's scan-tier kernels (lib) and
-    this tree's on the same inputs, timed in turns (other, this at the
-    other's geometry, this at its own, the same again backwards); this
-    tree's chain kernels at the other's geometry must give its bits and
-    their plain versions' there, and its maf_log stay inside the maf_log
-    gates of the other's. Prints each kernel's times, the ratios and the
-    differences."""
+def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
+    """One shape of --scan-times: the scan tier's kernels through the
+    package's wrappers at its own log_geometry, each timed (Timer: the mean
+    of 3 calls after a warm-up), and the chain's three kernels once more,
+    untimed, at the reference run's geometry, where their outputs must give
+    the reference's bits (bit_digest); then maf_log on the last N columns
+    of the snapped posterior (a strided view where the columns hold
+    several replicates), the posterior of the reference's geometry where
+    there is one, its freq held to the reference's inside the maf_log
+    gates. Returns this shape's record (geometry, times, digests); writes
+    maf_log's freq under out."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops.hwe import check_interv
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
-    dev = e.device
-    f64 = torch.float64
+    e, dist_t, F_t, a_t = chain
+    timer = Timer(torch, e.device)
     S, C = e.shape[0], e.shape[1]
-    timer = Timer(torch, dev)
-    st = cuda_lib.stream
-    g_p = parent_geometry(S, C)
-    g_m = thmm.log_geometry(S, C)
-    log(f"[before {label}] S={S} columns={C}: the other tree's geometry "
-        f"bs={g_p[0]} nb={g_p[1]}, this tree's bs={g_m[0]} nb={g_m[1]}")
 
-    def p_transfer(bs, nb):
-        A = torch.empty((nb, C, 2, 2), dtype=f64, device=dev)
-        cuda_lib.check(lib.ngsf_log_block_transfer(
-            e.data_ptr(), dist_t.data_ptr(), F_t.data_ptr(), a_t.data_ptr(),
-            A.data_ptr(), S, C, bs, nb, st()), "parent log_block_transfer")
-        return A
+    def run(bs, nb, timed):
+        t = timer if timed else (lambda fn: (fn(), None))
+        o, ms = {}, {}
+        A, ms["log_block_transfer"] = t(
+            lambda: thmm.log_block_transfer(*chain, bs, nb))
+        c, ms["log_combine"] = t(lambda: thmm.log_combine(A, F_t))
+        o["log_block_transfer"] = bit_digest(torch, A)
+        o["log_combine"] = [bit_digest(torch, x) for x in c]
+        for grad in (True, False):
+            name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
+            r, ms[name] = t(lambda: thmm.log_sweep(*chain, *c[:3], bs,
+                                                   grad=grad))
+            o[name] = bit_digest(torch, r)
+        return o, ms, r
 
-    def p_combine(A):
-        nb = A.shape[0]
-        fw_in = torch.empty((nb, C, 2), dtype=f64, device=dev)
-        bw_out = torch.empty_like(fw_in)
-        ll_f = torch.empty((C,), dtype=f64, device=dev)
-        ll_b = torch.empty_like(ll_f)
-        cuda_lib.check(lib.ngsf_log_combine(
-            A.data_ptr(), F_t.data_ptr(), fw_in.data_ptr(), bw_out.data_ptr(),
-            ll_f.data_ptr(), ll_b.data_ptr(), C, nb, st()),
-            "parent log_combine")
-        return fw_in, bw_out, ll_f, ll_b
-
-    def p_sweep(fw_in, bw_out, ll_f, bs, grad):
-        nb = fw_in.shape[0]
-        p = fws = gp = None
-        if grad:
-            fws = torch.empty((S, C, 2), dtype=f64, device=dev)
-            gp = torch.empty((nb, C, 2), dtype=f64, device=dev)
-        else:
-            p = torch.empty((S, C), dtype=f64, device=dev)
-        ptr = lambda t: None if t is None else t.data_ptr()
-        cuda_lib.check(lib.ngsf_log_sweep(
-            e.data_ptr(), dist_t.data_ptr(), F_t.data_ptr(), a_t.data_ptr(),
-            fw_in.data_ptr(), bw_out.data_ptr(), ll_f.data_ptr(), ptr(p),
-            ptr(fws), ptr(gp), S, C, bs, nb, int(grad), st()),
-            "parent log_sweep")
-        return gp if grad else p
-
-    def p_maf(gl2, ps):
-        out = torch.empty((S,), dtype=f64, device=dev)
-        cuda_lib.check(lib.ngsf_maf_log_f64(
-            gl2.data_ptr(), ps.data_ptr(), out.data_ptr(), S, N,
-            ps.stride(0), 0, st()), "parent maf_log")
-        return out
-
-    def turns(name, other, mine_at_other, mine):
-        """(other ms, this tree's at the other's geometry ms, this tree's
-        ms), each the mean of two turns."""
-        ms = {"other": [], "at": [], "mine": []}
-        outs = {}
-        for key, fn in (("other", other), ("at", mine_at_other),
-                        ("mine", mine), ("mine", mine),
-                        ("at", mine_at_other), ("other", other)):
-            outs[key], t = timer(fn)
-            ms[key].append(t)
-        m = {k: sum(v) / len(v) for k, v in ms.items()}
-        log(f"[before {label}] {name}: other tree {m['other']:.3f} ms "
-            f"({ms['other'][0]:.3f}, {ms['other'][1]:.3f}), this tree at "
-            f"its geometry {m['at']:.3f} ({m['at'] / m['other']:.3f}x), at "
-            f"this tree's geometry {m['mine']:.3f} "
-            f"({m['mine'] / m['other']:.3f}x)")
-        return outs
-
-    bs_p, nb_p = g_p
-    bs_m, nb_m = g_m
-    chain = (e, dist_t, F_t, a_t)
-    o = turns("log_block_transfer", lambda: p_transfer(bs_p, nb_p),
-              lambda: thmm.log_block_transfer(*chain, bs_p, nb_p),
-              lambda: thmm.log_block_transfer(*chain, bs_m, nb_m))
-    same = {"log_block_transfer": torch.equal(o["other"], o["at"])}
-    A_p, A_m = o["other"], o["mine"]
-    o = turns("log_combine", lambda: p_combine(A_p),
-              lambda: thmm.log_combine(A_p, F_t),
-              lambda: thmm.log_combine(A_m, F_t))
-    same["log_combine"] = all(torch.equal(a, b)
-                              for a, b in zip(o["other"], o["at"]))
-    cp, cm = o["other"], o["mine"]
-    for grad in (True, False):
-        name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
-        o = turns(name, lambda: p_sweep(*cp[:3], bs_p, grad),
-                  lambda: thmm.log_sweep(*chain, *cp[:3], bs_p, grad=grad),
-                  lambda: thmm.log_sweep(*chain, *cm[:3], bs_m, grad=grad))
-        same[name] = torch.equal(o["other"], o["at"])
-        if not grad:
-            p_mine = o["mine"]
-    del A_p, A_m, cp, cm, o
-    # and to their plain versions at that geometry
-    A_x = thmm._log_block_transfer_plain(*chain, bs_p, nb_p)
-    c_x = thmm._log_combine_plain(A_x, F_t)
-    plain = {"log_block_transfer": torch.equal(
-                 thmm.log_block_transfer(*chain, bs_p, nb_p), A_x),
-             "log_combine": all(torch.equal(a, b) for a, b in zip(
-                 thmm.log_combine(A_x, F_t), c_x))}
-    for grad in (True, False):
-        name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
-        plain[name] = torch.equal(
-            thmm.log_sweep(*chain, *c_x[:3], bs_p, grad=grad),
-            thmm._log_sweep_plain(*chain, *c_x[:3], bs_p, grad))
-    del A_x, c_x
-    log(f"[before {label}] this tree's chain kernels at the other tree's "
-        f"geometry bit-equal to the other's: {same}; to their plain "
-        f"versions there: {plain}")
-    if not all(same.values()) or not all(plain.values()):
-        fail(f"[before {label}] the chain kernels differ from the other "
-             "tree's or from their plain versions")
-    ps = check_interv(p_mine)[:, C - N:]
-    gl2 = gl_t.contiguous()
-    o = turns("maf_log", lambda: p_maf(gl2, ps),
-              lambda: tmaf.est_maf(gl_t, ps), lambda: tmaf.est_maf(gl_t, ps))
-    rel = (o["mine"] - o["other"]).abs() / o["other"].abs()
-    off = rel > LOG_MAF_RTOL
-    d_off = float((o["mine"] - o["other"])[off].abs().max()) if bool(
-        off.any()) else 0.0
-    log(f"[before {label}] maf_log against the other tree's: bit-equal "
-        f"{torch.equal(o['mine'], o['other'])}, sites differing "
-        f"{int((o['mine'] != o['other']).sum())} of {S}, max rel diff "
-        f"{float(rel[~off].max()) if not bool(off.all()) else 0.0:.3g} "
-        f"where the pass agrees, sites stopping at another pass "
-        f"{int(off.sum())} (freq max diff {d_off:.3g})")
-    if float(off.double().mean()) > MAF_FLIP_SHARE or d_off > MAF_FREQ_ATOL:
-        fail(f"[before {label}] maf_log off the other tree's")
+    cuda_lib.LAUNCHES.clear()
+    geom = list(thmm.log_geometry(S, C))
+    digests, ms, p = run(*geom, timed=True)
+    if ref is not None:
+        got, _, p = run(*ref["geometry"], timed=False)
+        same = {k: got[k] == ref["digests"][k] for k in got}
+        log(f"[scan times {label}] the chain kernels at the reference's "
+            f"geometry bs={ref['geometry'][0]} nb={ref['geometry'][1]} "
+            f"give its bits: {same}")
+        if not all(same.values()):
+            fail(f"[scan times {label}] the chain kernels differ from the "
+                 "reference run's")
+    ps = check_interv(p)[:, C - N:]
+    f, ms["maf_log"] = timer(lambda: tmaf.est_maf(gl_t, ps))
+    missing = [k for k in ("log_block_transfer", "log_combine", "log_sweep",
+                           "maf_log") if not cuda_lib.LAUNCHES[k]]
+    if e.is_cuda and missing:
+        fail(f"[scan times {label}] no launch of {missing}")
+    torch.save(f.cpu(), out / f"{label}_freq.pt")
+    if ref is not None:
+        f_r = torch.load(ref["dir"] / f"{label}_freq.pt").to(f.device)
+        rel = (f - f_r).abs() / f_r.abs()
+        off = rel > LOG_MAF_RTOL
+        d_off = float((f - f_r)[off].abs().max()) if bool(off.any()) else 0.0
+        log(f"[scan times {label}] maf_log against the reference's freq: "
+            f"bit-equal {torch.equal(f, f_r)}, sites differing "
+            f"{int((f != f_r).sum())} of {S}, max rel diff "
+            f"{float(rel[~off].max()) if not bool(off.all()) else 0.0:.3g} "
+            f"where the pass agrees, sites stopping at another pass "
+            f"{int(off.sum())} (freq max diff {d_off:.3g})")
+        if (float(off.double().mean()) > MAF_FLIP_SHARE
+                or d_off > MAF_FREQ_ATOL):
+            fail(f"[scan times {label}] maf_log off the reference's")
+    log(f"[scan times {label}] S={S} columns={C} bs={geom[0]} "
+        f"nb={geom[1]}: " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in ms.items()))
+    return {"geometry": geom, "ms": ms, "digests": digests}
 
 
-def compare_parent(torch, dev, args, R=20):
-    """--before CSRC: compare_scan_kernels at the scan path's shape (the
-    main data in float64) and at the scan_restart path's (R replicates of
-    the check shape's data, R * N columns; maf_log on the last
-    replicate's strided columns), against CSRC's log_chain.cu and
-    maf_log.cu. Prints no result and returns 4."""
+def run_scan_times(torch, dev, args, R=20):
+    """--scan-times OUT: scan_time_shape on the package's kernels (this
+    tree's, or --tree's) at the scan path's shape (the main data in
+    float64) and the scan_restart path's (R replicates of the check
+    shape's data, R * N columns); with --against-times REF, against that
+    run's files. Writes OUT/times.json. Prints no result and returns 4."""
+    import pathlib
+
     from ngsf_hmm_tpu_torch.models.restart import (flatten_states,
                                                    stack_restart_states)
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
 
-    lib = parent_scan_lib(args.before)
+    out = pathlib.Path(args.scan_times)
+    out.mkdir(parents=True, exist_ok=True)
+    refs = {}
+    if args.against_times:
+        ref_dir = pathlib.Path(args.against_times)
+        refs = json.loads((ref_dir / "times.json").read_text())
+        for r in refs.values():
+            r["dir"] = ref_dir
     f64 = torch.float64
+    recs = {}
     gl, dist, freq, F0, a0 = simulate(args.sites, args.ind, args.seed)
     gl_t = torch.as_tensor(gl).to(dev).to(f64)
     del gl
     e = calc_emission(gl_t, torch.as_tensor(freq).to(dev, f64)[:, None])
-    compare_scan_kernels(torch, lib, "main shape", e,
-                         torch.as_tensor(dist).to(dev, f64),
-                         torch.as_tensor(F0).to(dev, f64),
-                         torch.as_tensor(a0).to(dev, f64), gl_t, args.ind)
-    del e, gl_t
+    chain = (e, torch.as_tensor(dist).to(dev, f64),
+             torch.as_tensor(F0).to(dev, f64),
+             torch.as_tensor(a0).to(dev, f64))
+    recs["scan"] = scan_time_shape(torch, "scan", chain, gl_t, args.ind,
+                                   refs.get("scan"), out)
+    del e, chain, gl_t
     gl_c, dist_c, _, _, _ = simulate(args.check_sites, args.ind,
                                      args.seed + 7, n_chrom=1)
     step = max(2, min(100_000, args.check_sites // 2))
@@ -3175,10 +3064,49 @@ def compare_parent(torch, dev, args, R=20):
     gl_t = torch.as_tensor(gl_c).to(dev).to(f64)
     flat = flatten_states(stack_restart_states(gl_t, R, args.seed + 5,
                                                device=dev))
-    compare_scan_kernels(torch, lib, f"restart shape R={R}", flat.e_prob,
-                         torch.as_tensor(dist_c).to(dev, f64),
-                         flat.indF.to(f64).contiguous(),
-                         flat.alpha.to(f64).contiguous(), gl_t, args.ind)
+    chain = (flat.e_prob, torch.as_tensor(dist_c).to(dev, f64),
+             flat.indF.to(f64).contiguous(), flat.alpha.to(f64).contiguous())
+    recs["scan_restart"] = scan_time_shape(
+        torch, "scan_restart", chain, gl_t, args.ind,
+        refs.get("scan_restart"), out)
+    (out / "times.json").write_text(json.dumps(recs))
+    return 4
+
+
+def compare_trees(args):
+    """--before DIR: run_scan_times in four processes, in turns on DIR's
+    package (another tree's, the parent's) and this tree's: DIR, this,
+    this, DIR, each but the first against the first's files; then prints
+    for each shape and kernel the mean of each tree's two runs and their
+    ratio. Each tree runs its own wrappers and geometry, so nothing of the
+    other tree's interface is copied here. Returns 4 (no result)."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "scan_times"
+    flags = ["--sites", str(args.sites), "--ind", str(args.ind),
+             "--check-sites", str(args.check_sites), "--seed",
+             str(args.seed)] + (["--rehearse"] if args.rehearse else [])
+    other = ["--tree", os.path.abspath(args.before)]
+    runs = (("other", other), ("this", []), ("this", []), ("other", other))
+    times = {"other": [], "this": []}
+    for i, (who, extra) in enumerate(runs):
+        out = root / f"{i}_{who}"
+        against = ["--against-times", str(root / "0_other")] if i else []
+        log(f"[before] run {i}: the {who} tree")
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--scan-times", str(out), *extra, *against,
+                             *flags]).returncode
+        if rc != 4:
+            fail(f"--before: run {i} (the {who} tree) exited {rc}")
+        times[who].append(json.loads((out / "times.json").read_text()))
+    for shape in times["this"][0]:
+        for k in SCAN_TIMED:
+            o = [t[shape]["ms"][k] for t in times["other"]]
+            m = [t[shape]["ms"][k] for t in times["this"]]
+            mo, mm = sum(o) / len(o), sum(m) / len(m)
+            log(f"[before {shape}] {k}: other tree {mo:.3f} ms ({o[0]:.3f}, "
+                f"{o[1]:.3f}), this tree {mm:.3f} ms ({m[0]:.3f}, "
+                f"{m[1]:.3f}): {mm / mo:.3f}x")
     log("before: done; no result is printed for it")
     return 4
 
@@ -3202,6 +3130,7 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
     from ngsf_hmm_tpu_torch.ops.hwe import check_interv
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     timer = Timer(torch, dev)
     f64 = torch.float64
@@ -3233,8 +3162,6 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     err = gate("log_block_transfer", log_err(torch, A, A_p), LOG_RTOL)
     rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * C * 32,
                S * C * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
-    old_bound(results, label, "log_block_transfer", e_bytes + nb * C * 32,
-              S * C * FLOPS_LOG_OLD["log_block_transfer"])
 
     out, ms = timer(lambda: thmm.log_combine(A, F_t))
     out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
@@ -3243,8 +3170,6 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                                   for a, b in zip(out, out_p)), LOG_RTOL)
     rec.record("log_combine", err, ms, pms, nb * C * (32 + 32) + C * 24,
                nb * C * FLOPS_LOG["log_combine"], peak=PEAK_F64)
-    old_bound(results, label, "log_combine", nb * C * (32 + 32) + C * 24,
-              nb * C * FLOPS_LOG_OLD["log_combine"])
     fw_in, bw_out, ll_f, ll_b = out
     rec.finite("log_combine", ll_f, ll_b)
     sweep = chain + (fw_in, bw_out, ll_f, bs)
@@ -3259,23 +3184,35 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
                      warm=0)
     err_g = gate("log_sweep (grad)", log_err(torch, g, g_p), LOG_G_RTOL)
     rec.finite("log_sweep", p, g)
+    # the instances that compute the transitions again in the backward
+    # pass (log_sweep parks them only while its scratch fits in
+    # LOG_PARK_SHARE of the free memory): the parking instances' bits
+    if dev.type == "cuda":
+        parks = [thmm.log_sweep_parks(S, C, grad, cuda_lib.free_bytes(dev))
+                 for grad in (False, True)]
+        again = []
+        for grad, want in ((False, p), (True, g)):
+            got, t = timer(lambda: thmm.log_sweep(*sweep, grad=grad,
+                                                  park=False))
+            again.append(f"{t:.3f} ms, bit-equal {torch.equal(got, want)}")
+            if not torch.equal(got, want):
+                fail(f"log_sweep [{label}]: the instance that computes the "
+                     f"transitions again differs (grad={grad})")
+        log(f"[{label}] log_sweep parks the transitions here (posterior, "
+            f"grad): {parks}; computing them again: posterior {again[0]}, "
+            f"grad {again[1]}")
     in_bytes = e_bytes + nb * C * 32 + C * 8
     # the grad mode (every L-BFGS evaluation) is the kernel's line; the
     # posterior mode (the E-step) rides beside it
     rec.record("log_sweep", max(err_p, err_g), ms, pms,
                in_bytes + nb * C * 16, S * C * FLOPS_LOG["log_sweep_grad"],
                peak=PEAK_F64)
-    old_bound(results, label, "log_sweep", in_bytes + nb * C * 16,
-              S * C * FLOPS_LOG_OLD["log_sweep_grad"])
-    b_ms, b_old = (max((in_bytes + S * C * 8) / PEAK_BYTES,
-                       S * C * fl["log_sweep"] / PEAK_F64) * 1e3
-                   for fl in (FLOPS_LOG, FLOPS_LOG_OLD))
+    b_ms = max((in_bytes + S * C * 8) / PEAK_BYTES,
+               S * C * FLOPS_LOG["log_sweep"] / PEAK_F64) * 1e3
     results["log_sweep"]["posterior_mode"] = dict(
-        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, bound_old_ms=b_old,
-        max_abs_err=err_p)
+        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, max_abs_err=err_p)
     log(f"[{label}] log_sweep posterior mode: max diff {err_p:.3g}, kernel "
-        f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms (the "
-        f"parent tree's forms {b_old:.4f})")
+        f"{ms_p:.3f} ms, plain {pms_p:.1f} ms, bound {b_ms:.4f} ms")
     del A, A_p, out_p, p_p, g_p
 
     # ---- maf_log on the chain's snapped posterior (of the last replicate
@@ -3424,6 +3361,17 @@ def reset_peak(torch, dev, label):
     torch.cuda.reset_peak_memory_stats()
     log(f"[{label}] allocated at the peak reset "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def log_fit(torch, label, peak, S, C):
+    """A scan-tier path's peak memory a site and column, and the sites of
+    C columns that the card's memory would hold if the peak grew linearly
+    with the sites (an extrapolation from this run, not a run)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    per = peak * 2**30 / (S * C)
+    log(f"[{label}] peak {per:.1f} B a site and column: about "
+        f"{int(total / per / C):,} sites of {C} columns in the card's "
+        f"{total / 2**30:.1f} GiB (linear extrapolation)")
 
 
 def peak_gib(torch, dev, reset=False):
@@ -3781,6 +3729,7 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
             f"run_em {peak:.2f} GiB")
+        log_fit(torch, label, max(peak_init, peak), S, N)
     log(f"[{label}] launches {counts}")
     return counts
 
@@ -4098,6 +4047,8 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{max(peak_init, peak):.2f} GiB: the inits {peak_init:.2f} GiB, "
             f"run_em_restarts {peak:.2f} GiB")
+        if scan:
+            log_fit(torch, label, max(peak_init, peak), S, R * N)
     log(f"[{label}] launches {counts}")
     return counts
 
@@ -4344,10 +4295,17 @@ def main():
     ap.add_argument("--probe-build", metavar="CSRC",
                     help="only probe_build, on another tree's csrc "
                     "directory; exits 4")
-    ap.add_argument("--before", metavar="CSRC",
+    ap.add_argument("--before", metavar="DIR",
                     help="only the scan tier's kernels timed against "
-                    "another tree's (its csrc directory) in turns at the "
-                    "scan and scan_restart shapes; exits 4")
+                    "another tree's (its package under DIR) in turns at "
+                    "the scan and scan_restart shapes; exits 4")
+    ap.add_argument("--scan-times", metavar="OUT",
+                    help="only the scan tier's kernels timed at the scan "
+                    "and scan_restart shapes, written under OUT (one run "
+                    "of --before); exits 4")
+    ap.add_argument("--against-times", metavar="REF",
+                    help="with --scan-times: hold the outputs to another "
+                    "--scan-times run's under REF")
     ap.add_argument("--probes", action="store_true",
                     help="only the build, transfer and est_maf probes at "
                     "the main and restart shapes; exits 4")
@@ -4358,7 +4316,8 @@ def main():
                     "runs, their readings, final freqs and CLI outputs "
                     "written under OUT; exits 4")
     ap.add_argument("--tree", metavar="DIR",
-                    help="with --maf-anchor: run another tree's package "
+                    help="with --maf-anchor or --scan-times: run another "
+                    "tree's package "
                     "(its ngsf_hmm_tpu_torch under DIR)")
     ap.add_argument("--against-maf", metavar="DIR",
                     help="hold the float64 anchor and the paths' final "
@@ -4366,8 +4325,8 @@ def main():
                     "another tree's --maf-anchor files under DIR")
     args = ap.parse_args()
     if args.tree:
-        if not args.maf_anchor:
-            ap.error("--tree needs --maf-anchor")
+        if not (args.maf_anchor or args.scan_times):
+            ap.error("--tree needs --maf-anchor or --scan-times")
         sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
@@ -4386,6 +4345,10 @@ def main():
         dev = torch.device("cuda")
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
+    if args.before:
+        return compare_trees(args)
+    if args.scan_times and dev.type != "cuda":
+        return run_scan_times(torch, dev, args)
     smi = "cpu rehearsal"
     if dev.type == "cuda":
         smi = subprocess.run(
@@ -4406,9 +4369,11 @@ def main():
                         args.probe_build)
             probe_transcendentals()
             return 4
-        if args.maf_anchor:
+        if args.maf_anchor or args.scan_times:
             cuda_lib.load()
             log(f"[build] {cuda_lib.CSRC} -> {cuda_lib.build()}")
+            if args.scan_times:
+                return run_scan_times(torch, dev, args)
             return run_maf_anchor(torch, dev, args)
         # ---- phase 2: build
         t0 = time.perf_counter()
@@ -4429,8 +4394,6 @@ def main():
         check_logsum_identity(torch)
         if args.probes:
             return run_probes(torch, dev, args)
-        if args.before:
-            return compare_parent(torch, dev, args)
 
     # ---- phase 3: every kernel against its plain version
     results = {}
@@ -4645,7 +4608,7 @@ def main():
             "launches_per_path": {p: int(c.get(name, 0))
                                   for p, c in paths.items()},
         })
-        for extra in ("ms_by_shape", "posterior_mode", "bound_old_ms"):
+        for extra in ("ms_by_shape", "posterior_mode"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     log(f"[total] {time.perf_counter() - t_script:.1f} s from the start to "

@@ -33,7 +33,11 @@
 //     a scratch ([S, 4, C]; with grad [S, 6, C], the forward values
 //     beside them), and its backward pass reads them there instead of
 //     taking the decay's exp and four logs again: a quarter of the
-//     sweep's instructions, for 64 bytes a site and column more traffic;
+//     sweep's instructions, for 64 bytes a site and column more traffic.
+//     The scratch is 32 bytes a site and column more than the
+//     recomputing instance needs ([S, 2, C] with grad, none without), so
+//     models/hmm.py:log_sweep parks only while it fits in a share of the
+//     card's free memory (LOG_PARK_SHARE) and else runs that instance;
 //   * grad and posterior modes are two instances of one template, the
 //     block's first site (its forward vector is the entry vector, no step
 //     after it) and site 0's initial-distribution term peeled out of the
@@ -156,14 +160,14 @@ __device__ __forceinline__ double2 log_grad_site(double2 fp, double2 es,
 }
 
 // GRAD false: p = exp(fw1 + bw1 - L) (the forward pass parks fw1 in p);
-// GRAD true: the block's Fisher-identity sums. The forward pass parks
-// each site's four log transitions (and, GRAD, its forward vector) in the
-// scratch planes ws [S, NP, C], and the backward pass reads them there in
-// place of computing the transitions again: they are the same values, so
-// the bits are the plain version's. The block's first site is peeled out
-// of the backward loop (its forward vector is the entry vector; no step
-// after it is needed), and so is site 0's initial-distribution term.
-template <bool GRAD>
+// GRAD true: the block's Fisher-identity sums. The forward pass parks in
+// the scratch planes ws [S, NP, C] each site's forward vector (GRAD) and,
+// PARK, its four log transitions, which the backward pass then reads in
+// place of computing them again: they are the same values, so the bits
+// are the plain version's either way. The block's first site is peeled
+// out of the backward loop (its forward vector is the entry vector; no
+// step after it is needed), and so is site 0's initial-distribution term.
+template <bool GRAD, bool PARK>
 __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
     k_log_sweep(const double* __restrict__ e,  // [S, C, 2]
                 const double* __restrict__ dist,
@@ -176,7 +180,8 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
                 double* __restrict__ ws,            // [S, NP, C]
                 double* __restrict__ gpart,         // [nb, C, 2] (grad)
                 int S, int C, int bs, int nb) {
-    constexpr int NP = GRAD ? 6 : 4;  // planes: t00, t01, t10, t11[, fw]
+    // planes: [t00, t01, t10, t11,] [fw0, fw1]
+    constexpr int NT = PARK ? 4 : 0, NP = NT + (GRAD ? 2 : 0);
     const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (lane >= (long long)nb * C) return;
     const int c = (int)(lane % C), b = (int)(lane / C);
@@ -197,19 +202,24 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
         const double n1 = log_sum2(v0 + t.t01, v1 + t.t11) + es.y;
         v0 = n0;
         v1 = n1;
-        plane(s, 0) = t.t00;
-        plane(s, 1) = t.t01;
-        plane(s, 2) = t.t10;
-        plane(s, 3) = t.t11;
+        if (PARK) {
+            plane(s, 0) = t.t00;
+            plane(s, 1) = t.t01;
+            plane(s, 2) = t.t10;
+            plane(s, 3) = t.t11;
+        }
         if (GRAD) {
-            plane(s, 4) = v0;
-            plane(s, 5) = v1;
+            plane(s, NT) = v0;
+            plane(s, NT + 1) = v1;
         } else {
             p[(long long)s * C + c] = v1;
         }
     }
-    auto parked = [&](int s) -> LogTrans {
-        return LogTrans{plane(s, 0), plane(s, 1), plane(s, 2), plane(s, 3)};
+    auto trans = [&](int s) -> LogTrans {
+        if (PARK)
+            return LogTrans{plane(s, 0), plane(s, 1), plane(s, 2),
+                            plane(s, 3)};
+        return log_trans(Fc, log_decay(ac, dist[s]));
     };
 
     // backward from the block's exit vector
@@ -218,7 +228,7 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
         for (int s = s1 - 1; s > s0; --s) {
             const long long i = (long long)s * C + c;
             p[i] = exp(p[i] + w1 - L);
-            log_back(parked(s), e2[i], w0, w1);
+            log_back(trans(s), e2[i], w0, w1);
         }
         const long long i = (long long)s0 * C + c;
         p[i] = exp(p[i] + w1 - L);
@@ -230,9 +240,9 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
         const double x = log_decay(ac, d);
         const long long i = (long long)s * C + c;
         const double2 es = e2[i];
-        log_grad_site(make_double2(plane(s - 1, 4), plane(s - 1, 5)), es, w0,
-                      w1, L, x, d, Fc, gF, ga);
-        log_back(parked(s), es, w0, w1);
+        log_grad_site(make_double2(plane(s - 1, NT), plane(s - 1, NT + 1)),
+                      es, w0, w1, L, x, d, Fc, gF, ga);
+        log_back(PARK ? trans(s) : log_trans(Fc, x), es, w0, w1);
     }
     const double d = dist[s0];
     const double x = log_decay(ac, d);
@@ -274,22 +284,21 @@ extern "C" int ngsf_log_combine(const double* A, const double* F,
     return (int)cudaGetLastError();
 }
 
-// ws: the scratch planes, [S, 6, C] with grad, [S, 4, C] without
+// ws: the scratch planes, [S, 6, C] with grad and park, [S, 4, C] park
+// alone, [S, 2, C] grad alone, none (null) else
 extern "C" int ngsf_log_sweep(const double* e, const double* dist,
                               const double* F, const double* alpha,
                               const double* fw_in, const double* bw_out,
                               const double* ll_f, double* p, double* ws,
                               double* gpart, int S, int C, int bs, int nb,
-                              int grad, void* stream) {
+                              int grad, int park, void* stream) {
     const int grid = lanes_grid((long long)nb * C);
     const cudaStream_t st = (cudaStream_t)stream;
-    if (grad)
-        k_log_sweep<true><<<grid, LC_THREADS, 0, st>>>(
-            e, dist, F, alpha, fw_in, bw_out, ll_f, p, ws, gpart, S, C, bs,
-            nb);
-    else
-        k_log_sweep<false><<<grid, LC_THREADS, 0, st>>>(
-            e, dist, F, alpha, fw_in, bw_out, ll_f, p, ws, gpart, S, C, bs,
-            nb);
+    auto kernel = grad ? (park ? k_log_sweep<true, true>
+                               : k_log_sweep<true, false>)
+                       : (park ? k_log_sweep<false, true>
+                               : k_log_sweep<false, false>);
+    kernel<<<grid, LC_THREADS, 0, st>>>(e, dist, F, alpha, fw_in, bw_out,
+                                        ll_f, p, ws, gpart, S, C, bs, nb);
     return (int)cudaGetLastError();
 }

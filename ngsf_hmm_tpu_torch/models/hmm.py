@@ -161,6 +161,11 @@ def loglik_value_and_grad_sites(F, alpha, e_prob, dist):
 # launch bounds ask for); fewer blocks shorten log_combine's serial walk
 LOG_LANES_TARGET = 132 * cuda_lib.LOG_CHAIN_CTAS * cuda_lib.LOG_CHAIN_THREADS
 LOG_MIN_BS = 32  # shortest within-block chain worth a lane
+# log_sweep parks the sites' log transitions for its backward pass (32
+# bytes of float64 scratch a site and column more than computing them
+# again) while its whole scratch takes at most this share of the card's
+# free memory
+LOG_PARK_SHARE = 0.5
 
 
 def log_geometry(S, C):
@@ -313,16 +318,25 @@ def _log_sweep_plain(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad):
     return p.view(nb * bs, -1)[:S]
 
 
-def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
+def log_sweep_parks(S, C, grad, free_bytes):
+    """Whether log_sweep parks the transitions: its scratch with them,
+    float64 [S, 6, C] with grad or [S, 4, C], at most LOG_PARK_SHARE of
+    free_bytes."""
+    return S * C * 8 * (6 if grad else 4) <= LOG_PARK_SHARE * free_bytes
+
+
+def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False,
+              park=None):
     """Each block rerun forward from its entry vector and backward from its
     exit vector. grad=False: p_ibd [S, C] = exp(fw1 + bw1 - ll_f) (not
     snapped); grad=True: the Fisher-identity sums of dL/dF and dL/dalpha
     over each block, [nb, C, 2] (block 0 with the initial-distribution
     term; loglik_value_and_grad_sites' docstring). CUDA tensors: float64
-    kernel (a scratch of the sites' log transitions, which the backward
-    pass reads in place of computing them again, and with grad their
-    forward values: [S, 6, C], [S, 4, C] without); CPU tensors: the plain
-    version."""
+    kernel, with grad on a [S, 2, C] scratch of the forward values; park
+    (None: log_sweep_parks on the card's free memory) also keeps the
+    sites' log transitions there ([S, 6, C], [S, 4, C] without grad),
+    which the backward pass reads in place of computing them again, with
+    the same bits; CPU tensors: the plain version."""
     if not e_prob.is_cuda:
         return _log_sweep_plain(e_prob, dist, F, alpha, fw_in, bw_out, ll_f,
                                 bs, grad)
@@ -334,9 +348,12 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
                            ("ll_f", ll_f, (C,))):
         cuda_lib.require(t, f"log_sweep.{name}", torch.float64, shape)
     dev = e_prob.device
-    p = gpart = None
-    ws = torch.empty((S, 6 if grad else 4, C), dtype=torch.float64,
-                     device=dev)
+    p = gpart = ws = None
+    if park is None:
+        park = log_sweep_parks(S, C, grad, cuda_lib.free_bytes(dev))
+    planes = (4 if park else 0) + (2 if grad else 0)
+    if planes:
+        ws = torch.empty((S, planes, C), dtype=torch.float64, device=dev)
     if grad:
         gpart = torch.empty((nb, C, 2), dtype=torch.float64, device=dev)
     else:
@@ -345,7 +362,7 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False):
     rc = cuda_lib.load().ngsf_log_sweep(
         e_prob.data_ptr(), dist.data_ptr(), F.data_ptr(), alpha.data_ptr(),
         fw_in.data_ptr(), bw_out.data_ptr(), ll_f.data_ptr(), ptr(p),
-        ws.data_ptr(), ptr(gpart), S, C, bs, nb, int(grad),
+        ptr(ws), ptr(gpart), S, C, bs, nb, int(grad), int(park),
         cuda_lib.stream())
     cuda_lib.check(rc, "log_sweep")
     LAUNCHES["log_sweep"] += 1

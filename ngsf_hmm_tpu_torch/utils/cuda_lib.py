@@ -93,7 +93,7 @@ _SIGNATURES = {
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
     "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
     "ngsf_log_combine": [_P] * 6 + [_I] * 2 + [_P],
-    "ngsf_log_sweep": [_P] * 10 + [_I] * 5 + [_P],
+    "ngsf_log_sweep": [_P] * 10 + [_I] * 6 + [_P],
     "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
     "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
 }
@@ -196,6 +196,14 @@ def load(flags=NVCC_FLAGS):
 
 def stream():
     return torch.cuda.current_stream().cuda_stream
+
+
+def free_bytes(dev):
+    """The device memory a new tensor on dev can take: the driver's free
+    memory and the blocks torch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return free + cached
 
 
 def check(rc, name):

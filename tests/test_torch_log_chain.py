@@ -282,6 +282,25 @@ def test_one_exp_logsum_forms_equal_ops_logsum_bit_for_bit():
     assert _same_bits(_logsum3_one_exp(a, b, c), t_logsum.logsum3(a, b, c))
 
 
+def test_log_sweep_parks_only_within_its_share():
+    """The sweep keeps the transitions in its scratch only while the
+    scratch takes at most LOG_PARK_SHARE of the free memory: the scan and
+    scan_restart shapes on an empty 80 GB card do, a card already nearly
+    full computes them again."""
+    gib = 2**30
+    share = t_hmm.LOG_PARK_SHARE
+    for S_, C, grad in ((1_000_000, 100, True), (200_003, 2_000, True),
+                        (200_003, 2_000, False)):
+        need = S_ * C * 8 * (6 if grad else 4)
+        assert t_hmm.log_sweep_parks(S_, C, grad, 79 * gib)
+        assert t_hmm.log_sweep_parks(S_, C, grad, need / share)
+        assert not t_hmm.log_sweep_parks(S_, C, grad, need / share - 1)
+    # the grad scratch is 1.5 times the posterior one
+    free = 200_003 * 2_000 * 8 * 5 / share
+    assert t_hmm.log_sweep_parks(200_003, 2_000, False, free)
+    assert not t_hmm.log_sweep_parks(200_003, 2_000, True, free)
+
+
 def test_plain_calls_counted_under_the_kernel_names(case):
     F, a, e, d = _port(case)
     cuda_lib.reset_counts()
