@@ -333,7 +333,7 @@ def log_sweep(e_prob, dist, F, alpha, fw_in, bw_out, ll_f, bs, grad=False,
     over each block, [nb, C, 2] (block 0 with the initial-distribution
     term; loglik_value_and_grad_sites' docstring). CUDA tensors: float64
     kernel, with grad on a [S, 2, C] scratch of the forward values; park
-    (None: log_sweep_parks on the card's free memory) also keeps the
+    (None: log_sweep_parks on cuda_lib.free_bytes) also keeps the
     sites' log transitions there ([S, 6, C], [S, 4, C] without grad),
     which the backward pass reads in place of computing them again, with
     the same bits; CPU tensors: the plain version."""

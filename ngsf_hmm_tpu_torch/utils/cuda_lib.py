@@ -199,11 +199,12 @@ def stream():
 
 
 def free_bytes(dev):
-    """The device memory a new tensor on dev can take: the driver's free
-    memory and the blocks torch's allocator holds unused."""
-    free, _ = torch.cuda.mem_get_info(dev)
-    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return free + cached
+    """The device memory that torch's tensors on dev leave free: the card's
+    total less what they take, both read on the host (no driver call,
+    which could stall a queue of launches; memory that is not torch's is
+    counted free)."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return total - torch.cuda.memory_allocated(dev)
 
 
 def check(rc, name):
