@@ -74,9 +74,15 @@ needs one CUDA device and nvcc. It
      on a replicate's strided columns), and at 2,003 x 33 (a site at
      distance 0) the
      chain functions against the per-site oracle loops and float64
-     Viterbi against its plain version; maf_log also at 33,333 sites x
-     20, 33, 100 and 130 individuals, 10,007 x 1,000 and 1,001 x 4,000
-     (every segment width its geometry chooses, and cells read from
+     Viterbi against its plain version; log_block_transfer and log_combine
+     bit for bit (log_combine also with one chunk, and at 2,003 x 33 with
+     chunks of one block), and at 20,011 x 40 on extreme inputs (F = 0, 1
+     and 1e-300, a subnormal decay, -inf emissions, an 800-nat emission
+     gap, rows drifting thousands of nats apart, runs of distance 0) at
+     their geometry's blocks and at blocks of 1,200 sites; maf_log also
+     at 33,333 sites x 20, 33, 100 and 130 individuals, 10,007 x 1,000
+     and 1,001 x 4,000 (every segment width its geometry chooses, and
+     cells read from
      device memory), printing the passes its warps run against those its
      sites need and the share of cells that take their own prior logs,
   4. drives nine paths, each with the launch counts set to 0 just before
@@ -122,8 +128,11 @@ tree's package (DIR's, the parent's) and of this tree's in turns (DIR,
 this, this, DIR; one process each, --scan-times OUT [--tree DIR]
 [--against-times REF]) at the scan and scan_restart shapes, each tree
 through its own wrappers at its own geometry; this tree's chain kernels
-must give the other's bits at the other's geometry and maf_log stay
-inside its gates of the other's; exits 4. --probes runs only the
+must stay within the gates of the kernels against their plain versions
+of the other's outputs at the other's geometry, each on the other's
+inputs (block products and walks; the grad sweep's sums and 512 seeded
+rows of the posterior from the other's walks) and maf_log inside its
+gates of the other's; exits 4. --probes runs only the
 measurements and exits 4;
 --probe-build CSRC runs only probe_build on another tree's sources.
 --maf-anchor OUT [--tree DIR] runs only the float64 anchor, the main
@@ -304,16 +313,28 @@ ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
 # place of the maximum term's exp (log_common.cuh), 2 adds; logsum3 the
 # same with 2 exps. The site's decay and four log transitions 1 + exp +
 # 6 + 4 log; a forward or backward step of a 2-vector 2 logsum2 + 6 adds.
+# The "_old" entries count the log-space kernels of the parent tree
+# (log_block_transfer in the log semiring, log_combine one serial walk a
+# direction), the bounds PERF.md keeps beside the new ones.
 def flops_log(E, L):
     logsum2 = E + L + 6
     logsum3 = 2 * E + L + 9
     site = 7 + E + 4 * L
     step = 2 * logsum2 + 6
     return {
-        # per (site, column): the site, the product's two rows
-        "log_block_transfer": site + 2 * step,
-        # per (block, column): the forward and the backward walk
-        "log_combine": 2 * step,
+        # per (site, column), the linear chain (log_common.cuh: lx_site,
+        # lx_entry): the decay (a multiply and its exp), 1 - x, the four
+        # transitions (2 multiplies, 2 adds), the emission gap and its
+        # exp, the offset's add; each of the four entries two products,
+        # two scalings by powers of two, their sum and the emission factor
+        # (the four logs a lane at the block's end are not counted)
+        "log_block_transfer": 2 + E + 1 + 4 + 1 + E + 1 + 4 * 6,
+        "log_block_transfer_old": site + 2 * step,
+        # per (block, column): the chunk product's step (4 logsum2 and 8
+        # adds) and a step of the rerun forward and backward (the walks
+        # over the chunks, one a chunk, are not counted)
+        "log_combine": 4 * logsum2 + 8 + 2 * (2 * logsum2 + 4),
+        "log_combine_old": 2 * step,
         # per (site, column): the site (once: the backward pass reads its
         # transitions where the forward pass parked them) and a step
         # forward and backward, then p = exp(fw1 + bw1 - L) (posterior
@@ -1343,29 +1364,53 @@ def window_probe_line(nice, props, loops, shapes, source):
         f"{floors}{other}")
 
 
+def log_combine_launch(nb, C):
+    """(threads a CTA, CTAs) of k_log_combine at nb blocks and C columns,
+    as csrc/log_chain.cu:ngsf_log_combine chooses them: tn columns x nc
+    chunks x 2 directions a CTA, tn * nc at most LOG_COMBINE_MAX_CHUNKS."""
+    from ngsf_hmm_tpu_torch.models.hmm import log_combine_chunk_len
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    nc = -(-nb // log_combine_chunk_len(nb))
+    tn = 32
+    while tn > 1 and tn * nc > cuda_lib.LOG_COMBINE_MAX_CHUNKS:
+        tn //= 2
+    return 2 * tn * nc, -(-C // tn)
+
+
 def log_probe_line(nice, props, loops, shapes):
     """probe_build's line for a scan-tier kernel (log_chain.cu,
     maf_log.cu) at each shape: registers, spills, shared memory, resident
     CTAs, waves, and its three largest SASS loops with their commonest
     opcodes (the float64 DFMA / DADD / DMUL and MUFU among them). The
-    chain kernels run a thread a (block, column) lane (the combine a
-    thread a column and direction); maf_log runs the geometry its
-    template arguments name (maf_log_launch)."""
+    lane kernels run a thread a (block, column) lane, log_combine its
+    CTAs of log_combine_launch; maf_log runs the geometry its template
+    arguments name (maf_log_launch). For log_block_transfer also the SASS
+    instructions of its site loop outside the loops nested in it (its
+    rare sites go out of line, a call) and the issue floor they give at
+    one instruction a cycle of each of the 4 schedulers of 132 SMs."""
     import re
 
     if not loops:
         return
-    n_ins, lp, _, _ = loops
+    n_ins, lp, flat, _ = loops
     from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
     lc = cuda_lib.LOG_CHAIN_THREADS
     for label, sh in shapes.items():
         smem = props["smem"]
+        floor = ""
         if "k_log_combine" in nice:
-            threads, total = 64, 2 * sh["C"]
+            threads, ctas_n = log_combine_launch(sh["nb"], sh["C"])
+            total = threads * ctas_n
         elif "k_log_" in nice:
             threads, total = lc, sh["nb"] * sh["C"]
+            if "k_log_block_transfer" in nice and flat:
+                ms = flat * sh["S"] * sh["C"] / 32 / (
+                    4 * SM_COUNT * SM_CLOCK_MHZ * 1e3)
+                floor = (f"; the site loop {flat} SASS instructions a site "
+                         f"and column, issue floor {ms:.3f} ms")
         else:
             if "k_maf_log<float" in nice:
                 continue  # the float32 instance: not on the scan tier
@@ -1388,7 +1433,7 @@ def log_probe_line(nice, props, loops, shapes):
             f"registers, spills {props.get('spill', (0, 0))}, smem {smem} "
             f"B; {ctas} CTAs of {threads} an SM, {total} threads "
             f"({waves:.2f} waves); {n_ins} SASS instructions; loops: "
-            f"{top or 'none'}")
+            f"{top or 'none'}{floor}")
 
 
 def probe_build(lanes_by_source, csrc=None):
@@ -2936,32 +2981,43 @@ def check_logsum_identity(torch, n=1 << 22):
         fail("the one-exp logsum forms differ from the all-exp forms")
 
 
+# --scan-times holds this many posterior rows, drawn from this seed, to
+# the reference run's
+SCAN_P_ROWS, SCAN_P_SEED = 512, 1234
 # the scan tier's kernels that --before times, in this order
 SCAN_TIMED = ("log_block_transfer", "log_combine", "log_sweep (grad)",
               "log_sweep (posterior)", "maf_log")
 
 
-def bit_digest(torch, t):
-    """Two wrapping int64 sums of t's bits, plain and weighted by odd
-    positions: equal bits give equal sums, and other bits at any entries
-    change them but for a chance near 2^-64."""
-    ib = torch.int64 if t.element_size() == 8 else torch.int32
-    x = t.contiguous().view(-1).view(ib).long()
-    w = torch.arange(1, 2 * x.numel(), 2, device=x.device)
-    return [int(x.sum()), int((x * w).sum())]
+def scan_diff(torch, name, pairs):
+    """The largest difference of --scan-times output pairs (got, want):
+    absolute for the posterior rows, log_err for the others."""
+    if name == "log_sweep (posterior)":
+        return max(float((g - w).abs().max()) for g, w in pairs)
+    return max(log_err(torch, g, w) for g, w in pairs)
 
 
 def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
     """One shape of --scan-times: the scan tier's kernels through the
     package's wrappers at its own log_geometry, each timed (Timer: the mean
-    of 3 calls after a warm-up), and the chain's three kernels once more,
-    untimed, at the reference run's geometry, where their outputs must give
-    the reference's bits (bit_digest); then maf_log on the last N columns
+    of 3 calls after a warm-up), their outputs written under out (the
+    block products, the walks' four outputs, the grad sweep's block sums
+    and SCAN_P_ROWS seeded rows of the posterior, whole 0.8 GB at the
+    scan shape); with a reference run, the chain's three kernels once
+    more, untimed, at its geometry, each kernel's outputs held to its
+    files on its inputs at the gates of the kernels against their plain
+    versions (two trees' chain kernels need not give the same bits): the
+    block products and the walks at LOG_RTOL, the sweep run on the
+    reference's walks at LOG_G_RTOL and LOG_P_ATOL; the sweep on this
+    tree's own walks is printed beside them, ungated (where |ll_f| is
+    about 8e5 an ulp of the walks' log values is 1.2e-10, and another
+    association of their sums moves them by tens of ulps, the posterior
+    and the gradient by that share); then maf_log on the last N columns
     of the snapped posterior (a strided view where the columns hold
-    several replicates), the posterior of the reference's geometry where
+    several replicates), the posterior of the reference's walks where
     there is one, its freq held to the reference's inside the maf_log
-    gates. Returns this shape's record (geometry, times, digests); writes
-    maf_log's freq under out."""
+    gates. Returns this shape's record (geometry, times); writes the
+    outputs and maf_log's freq under out."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops.hwe import check_interv
@@ -2970,6 +3026,8 @@ def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
     e, dist_t, F_t, a_t = chain
     timer = Timer(torch, e.device)
     S, C = e.shape[0], e.shape[1]
+    rows = torch.randperm(S, generator=torch.Generator().manual_seed(
+        SCAN_P_SEED))[:SCAN_P_ROWS].sort().values.to(e.device)
 
     def run(bs, nb, timed):
         t = timer if timed else (lambda fn: (fn(), None))
@@ -2977,27 +3035,57 @@ def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
         A, ms["log_block_transfer"] = t(
             lambda: thmm.log_block_transfer(*chain, bs, nb))
         c, ms["log_combine"] = t(lambda: thmm.log_combine(A, F_t))
-        o["log_block_transfer"] = bit_digest(torch, A)
-        o["log_combine"] = [bit_digest(torch, x) for x in c]
+        o["log_block_transfer"] = [A]
+        o["log_combine"] = list(c)
         for grad in (True, False):
             name = "log_sweep (grad)" if grad else "log_sweep (posterior)"
             r, ms[name] = t(lambda: thmm.log_sweep(*chain, *c[:3], bs,
                                                    grad=grad))
-            o[name] = bit_digest(torch, r)
+            o[name] = [r if grad else r[rows]]
         return o, ms, r
 
     cuda_lib.LAUNCHES.clear()
     geom = list(thmm.log_geometry(S, C))
-    digests, ms, p = run(*geom, timed=True)
+    outs, ms, p = run(*geom, timed=True)
+    torch.save({k: [x.cpu() for x in v] for k, v in outs.items()},
+               out / f"{label}_chain.pt")
     if ref is not None:
-        got, _, p = run(*ref["geometry"], timed=False)
-        same = {k: got[k] == ref["digests"][k] for k in got}
-        log(f"[scan times {label}] the chain kernels at the reference's "
-            f"geometry bs={ref['geometry'][0]} nb={ref['geometry'][1]} "
-            f"give its bits: {same}")
-        if not all(same.values()):
-            fail(f"[scan times {label}] the chain kernels differ from the "
-                 "reference run's")
+        geom_r = ref["geometry"]
+        got, _, _ = run(*geom_r, timed=False)
+        want = {k: [w.to(e.device) for w in v] for k, v in torch.load(
+            ref["dir"] / f"{label}_chain.pt").items()}
+        # the sweep once more on the reference's walks: each kernel is
+        # held to the reference on the reference's inputs, and maf_log
+        # reads that posterior
+        fw_r, bw_r, llf_r = want["log_combine"][:3]
+        g_r = thmm.log_sweep(*chain, fw_r, bw_r, llf_r, geom_r[0],
+                             grad=True)
+        p = thmm.log_sweep(*chain, fw_r, bw_r, llf_r, geom_r[0])
+        on_ref = {"log_sweep (grad)": [g_r],
+                  "log_sweep (posterior)": [p[rows]]}
+        held = {k: (got[k] if "sweep" not in k else on_ref[k])
+                for k in got}
+        errs, same, bad = {}, {}, []
+        for k, ts in held.items():
+            pairs = list(zip(ts, want[k]))
+            same[k] = all(bits_equal(torch, g, w) for g, w in pairs)
+            errs[k] = scan_diff(torch, k, pairs)
+            tol = (LOG_P_ATOL if k == "log_sweep (posterior)" else
+                   LOG_G_RTOL if "grad" in k else LOG_RTOL)
+            if not errs[k] <= tol:
+                bad.append(k)
+        own = {k: scan_diff(torch, k, list(zip(got[k], want[k])))
+               for k in on_ref}
+        log(f"[scan times {label}] this tree's chain kernels at the "
+            f"reference's geometry bs={geom_r[0]} nb={geom_r[1]} against "
+            f"its outputs (the sweep on its walks): max diff "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; bit-equal {same}; the sweep on this tree's own walks: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in own.items())
+            + f" (|ll_f| up to {float(llf_r.abs().max()):.4g})")
+        if bad:
+            fail(f"[scan times {label}] {bad} off the reference run's "
+                 "outputs")
     ps = check_interv(p)[:, C - N:]
     f, ms["maf_log"] = timer(lambda: tmaf.est_maf(gl_t, ps))
     missing = [k for k in ("log_block_transfer", "log_combine", "log_sweep",
@@ -3022,7 +3110,7 @@ def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
     log(f"[scan times {label}] S={S} columns={C} bs={geom[0]} "
         f"nb={geom[1]}: " + ", ".join(f"{k} {v:.3f} ms"
                                       for k, v in ms.items()))
-    return {"geometry": geom, "ms": ms, "digests": digests}
+    return {"geometry": geom, "ms": ms}
 
 
 def run_scan_times(torch, dev, args, R=20):
@@ -3111,8 +3199,86 @@ def compare_trees(args):
     return 4
 
 
+def same_log_bits(torch, what, got, want):
+    """A chain kernel's outputs (a tensor or a tuple) against its plain
+    version's: every entry the same bits, or the run fails. Returns the
+    largest log_err (0 where the bits agree), for the kernels' line."""
+    got = (got,) if torch.is_tensor(got) else tuple(got)
+    want = (want,) if torch.is_tensor(want) else tuple(want)
+    err = max(log_err(torch, a, b) for a, b in zip(got, want))
+    same = all(bits_equal(torch, a, b) for a, b in zip(got, want))
+    log(f"[bits] {what}: bit-equal to the plain version {same} (max diff "
+        f"{err:.3g})")
+    if not same:
+        fail(f"{what}: not the plain version's bits (max diff {err:.3g})")
+    return err
+
+
+def extreme_chain(torch, dev, S, N, seed):
+    """float64 chain inputs at the edges of the linear block product
+    (tests/test_torch_log_kernels.py's cases at a larger size): columns
+    with F = 0, 1 and 1e-300, a column whose decay at one site is exp(-720)
+    (subnormal), columns whose two states' emissions stay 25 nats apart at
+    every site (so a block's row entries drift thousands of nats apart),
+    -inf emissions of one state (runs of sites) and of both (one site of
+    one column), one site of 800 nats' emission gap a column, chromosome
+    breaks and runs of sites at distance 0."""
+    rng = np.random.default_rng(seed)
+    e = np.log(rng.uniform(1e-5, 1.0, (S, N, 2)))
+    dist = rng.uniform(0.001, 0.3, S)
+    dist[0] = 1.5
+    dist[S // 3::S // 3] = np.inf
+    dist[100:140] = 0.0
+    F = rng.uniform(0.05, 0.9, N)
+    alpha = rng.uniform(0.01, 0.5, N)
+    F[:3] = (0.0, 1.0, 1e-300)
+    alpha[1] = 360.0
+    dist[S // 2] = 2.0  # column 1: x = exp(-720)
+    for c in range(4, 10):
+        k = c % 2
+        e[:, c, 1 - k] = e[:, c, k] - 25.0
+    F[4:10:2], F[5:10:2] = 0.0, 1.0
+    e[1000:1050, 10, 1] = -np.inf
+    e[2000:2010, 11, 0] = -np.inf
+    e[S // 4, 12, :] = -np.inf
+    cols = np.arange(13, N)
+    e[rng.integers(0, S, cols.size), cols, 0] -= 800.0
+    t = lambda x: torch.as_tensor(x).to(dev, torch.float64)
+    return t(e), t(dist), t(F), t(alpha)
+
+
+def check_log_extremes(torch, dev, seed, S=20_011, N=40):
+    """log_block_transfer and log_combine bit-equal to their plain
+    versions on extreme_chain's inputs, at log_geometry's blocks and at
+    blocks of 1,200 sites; log_combine also at chunk length 1 (where its
+    chunks fit a CTA) and nb. Prints the widest gap between a row's two
+    finite entries of A (the linear product keeps them apart however far
+    they drift)."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.utils import cuda_lib
+
+    chain = extreme_chain(torch, dev, S, N, seed)
+    F_t = chain[2]
+    for bs, nb in (thmm.log_geometry(S, N), (1_200, -(-S // 1_200))):
+        what = f"extreme shape S={S} columns={N} bs={bs} nb={nb}"
+        A = thmm.log_block_transfer(*chain, bs, nb)
+        same_log_bits(torch, f"log_block_transfer [{what}]", A,
+                      thmm._log_block_transfer_plain(*chain, bs, nb))
+        lens = [thmm.log_combine_chunk_len(nb), nb] + (
+            [1] if nb <= cuda_lib.LOG_COMBINE_MAX_CHUNKS else [])
+        for L in lens:
+            same_log_bits(torch, f"log_combine [{what}] L={L}",
+                          thmm._log_combine(A, F_t, L),
+                          thmm._log_combine_plain(A, F_t, L))
+        fin = torch.isfinite(A[..., 0]) & torch.isfinite(A[..., 1])
+        gap = (A[..., 0] - A[..., 1]).abs()[fin]
+        log(f"[{what}] -inf entries of A {int(torch.isneginf(A).sum())} "
+            f"of {A.numel()}, widest gap between a row's finite entries "
+            f"{float(gap.max()):.1f} nats")
+
+
 def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
-                      oracle=False, e_prob=None):
+                      oracle=False, e_prob=None, chunks=()):
     """The scan tier's kernels (csrc/log_chain.cu, csrc/maf_log.cu) against
     their plain versions on `dev`, float64, at this shape: the emissions of
     (gl, freq), the chain's three kernels (the sweep in both modes), then
@@ -3125,7 +3291,9 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     maf_log on the last replicate's strided columns, read in place).
     oracle=True (a small shape): also the public chain functions against
     the per-site oracle loops of models/hmm.py and float64 Viterbi against
-    its plain version. Fails the run on any disagreement."""
+    its plain version. chunks: log_combine also at these chunk lengths.
+    log_block_transfer and log_combine must give their plain versions'
+    bits. Fails the run on any disagreement."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
@@ -3159,17 +3327,20 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
     A, ms = timer(lambda: thmm.log_block_transfer(*chain, bs, nb))
     A_p, pms = timer(lambda: thmm._log_block_transfer_plain(*chain, bs, nb),
                      reps=1, warm=0)
-    err = gate("log_block_transfer", log_err(torch, A, A_p), LOG_RTOL)
+    err = same_log_bits(torch, f"log_block_transfer [{label}]", A, A_p)
     rec.record("log_block_transfer", err, ms, pms, e_bytes + nb * C * 32,
                S * C * FLOPS_LOG["log_block_transfer"], peak=PEAK_F64)
 
     out, ms = timer(lambda: thmm.log_combine(A, F_t))
     out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
                        warm=0)
-    err = gate("log_combine", max(log_err(torch, a, b)
-                                  for a, b in zip(out, out_p)), LOG_RTOL)
+    err = same_log_bits(torch, f"log_combine [{label}]", out, out_p)
     rec.record("log_combine", err, ms, pms, nb * C * (32 + 32) + C * 24,
                nb * C * FLOPS_LOG["log_combine"], peak=PEAK_F64)
+    for L in chunks:
+        same_log_bits(torch, f"log_combine [{label}] L={L}",
+                      thmm._log_combine(A, F_t, L),
+                      thmm._log_combine_plain(A, F_t, L))
     fw_in, bw_out, ll_f, ll_b = out
     rec.finite("log_combine", ll_f, ll_b)
     sweep = chain + (fw_in, bw_out, ll_f, bs)
@@ -4420,14 +4591,20 @@ def main():
     # ---- the scan tier's kernels (float64): at the ragged check shape
     # with breaks, against the per-site oracle (and float64 Viterbi) at a
     # small one; at the scan path's shape below
+    # (log_combine also with its whole walk in one chunk, and at the
+    # oracle shape at chunk length 1), then on the extreme inputs
     t0 = time.perf_counter()
+    from ngsf_hmm_tpu_torch.models.hmm import log_geometry
     check_log_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c,
-                      "check", results)
+                      "check", results, chunks=(log_geometry(S_c, N)[1],))
     S_o, N_o = (211, 5) if args.rehearse else (2_003, 33)
     gl_o, dist_o, freq_o, F0_o, a0_o = simulate(S_o, N_o, args.seed + 23)
     dist_o[S_o // 2] = 0.0  # a site at distance 0: the identity
     check_log_kernels(torch, dev, gl_o, dist_o, freq_o, F0_o, a0_o,
-                      "oracle shape", {}, oracle=True)
+                      "oracle shape", {}, oracle=True,
+                      chunks=(1, log_geometry(S_o, N_o)[1]))
+    check_log_extremes(torch, dev, args.seed + 37,
+                       *((2_411, 20) if args.rehearse else (20_011, 40)))
     # maf_log at every segment width its geometry chooses
     check_maf_log_shapes(torch, dev, args.seed + 31, results, tuple(
         (n, 101) for n, _ in MAF_LOG_NS) if args.rehearse else MAF_LOG_NS)

@@ -9,26 +9,34 @@
 // pad or zero-distance site is the identity:
 //   1. log_block_transfer: each (block, column) lane forms the block's
 //      2x2 log product, row k the forward recursion started from the unit
-//      vector e_k, in the JAX forward step's order;
-//   2. log_combine: one thread a column walks the nb products forward
-//      from log q (each block's entry vector, ll_f) and another backward
-//      from 0 (each block's exit vector; through block 0 it is the JAX
+//      vector e_k: in linear float64, each entry with its own binary
+//      exponent, each site's larger log emission summed into a lane
+//      offset, four logs at the block's end (log_common.cuh: Lx);
+//   2. log_combine: in two levels, chunks of about sqrt(nb) blocks: their
+//      products, then one thread a column walks the chunk products forward
+//      from log q (each chunk's entry vector, ll_f) and another backward
+//      from 0 (each chunk's exit vector; through block 0 it is the JAX
 //      backward's sentinel step, so ll_b folds in site 0's emission and
-//      then log q, as the Fw/Bw check of EM.cpp:166-170 wants);
+//      then log q, as the Fw/Bw check of EM.cpp:166-170 wants), then each
+//      chunk's blocks again from its entry and exit vectors;
 //   3. log_sweep: each lane reruns its block forward from its entry and
 //      backward from its exit. Without grad it writes p_ibd = exp(fw1 +
 //      bw1 - ll_f) (the forward pass parks fw1 in p); with grad it parks
 //      fw in its scratch and sums the Fisher-identity terms of
 //      dL/dF and dL/dalpha over its block (site 0's lane also the
 //      initial-distribution term), one partial sum a (block, column).
-// Bound by float64 operations: a site step takes one exp for the decay,
-// four logs for the transitions and two (forward, backward) or four (the
-// product's two rows) logsum2, each an exp and a log (log_common.cuh: the
-// maximum term's exp(0) is 1 and not computed); the bytes are 16 a site
-// and column for the emissions, read once by (1) and twice by (3). In
-// SASS the CUDA exp and log are about 70 and 93 instructions, so the
-// kernels issue about one instruction a cycle of their schedulers and
-// their cost is the instructions a site. What the design does about it:
+// What bounds each, and what the design does about it:
+//   * (1) and (3) are bound by float64 operations. In the log semiring a
+//     site step takes one exp for the decay, four logs for the transitions
+//     and two (forward, backward) or four (the product's two rows)
+//     logsum2, each an exp and a log; in SASS the CUDA exp and log are
+//     about 70 and 93 instructions, and the kernels issue about one
+//     instruction a cycle of their schedulers. (1) therefore leaves the
+//     log semiring: its step is 8 products, 4 sums and 4 scalings by
+//     powers of two with integer exponents (exact), and two exps (the
+//     decay and the smaller emission's factor; the larger one's is 1).
+//     The next site's exps do not depend on the chain, so the loop body
+//     steps the chain and forms the next site in one basic block;
 //   * the sweep's forward pass parks each site's four log transitions in
 //     a scratch ([S, 4, C]; with grad [S, 6, C], the forward values
 //     beside them), and its backward pass reads them there instead of
@@ -42,10 +50,13 @@
 //     block's first site (its forward vector is the entry vector, no step
 //     after it) and site 0's initial-distribution term peeled out of the
 //     loops;
+//   * (2) is bound by the latency of its serial walk (its bytes, the nb
+//     products and vectors, take microseconds): one thread a column
+//     walking all nb = 844 products took about 1.5 us a step; the two
+//     levels cut the depth to about 3 sqrt(nb) steps;
 //   * the lane kernels' launch bounds ask for LC_CTAS CTAs an SM (the
 //     grad sweep's registers without a spill) and log_geometry gives one
-//     wave of them, so the serial walk of (2) is nb = 844 steps at 100
-//     columns, not 1,352.
+//     wave of them.
 // Columns are independent, so R flattened replicates (R * N columns)
 // give each replicate the result it has alone at the same geometry.
 #include "log_common.cuh"
@@ -58,6 +69,20 @@
 #error "build with -DLC_THREADS and -DLC_CTAS (utils/cuda_lib.py)"
 #endif
 
+// the rare sites' slow path, out of line so that the site loop holds only
+// the common one
+__device__ __noinline__ LxSite lx_site_slow(double F, double q0, double x,
+                                            double2 es) {
+    return lx_site<true>(F, q0, x, es);
+}
+
+// One (block, column) lane: the block's 2x2 product in linear float64 with
+// an exponent an entry (log_common.cuh: Lx), row k from the unit vector
+// e_k, the four logs at the end. The loop body first steps the chain
+// through the current site, then forms the next site (its decay's exp, its
+// emission's exp, the transitions' mantissas and exponents), which does
+// not depend on the chain, so the two interleave in one basic block; the
+// rare sites (lx_site_rare) form again on the slow path, out of line.
 __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
     k_log_block_transfer(const double* __restrict__ e,  // [S, C, 2]
                          const double* __restrict__ dist,
@@ -68,66 +93,157 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
     const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (lane >= (long long)nb * C) return;
     const int c = (int)(lane % C), b = (int)(lane / C);
-    const double Fc = F[c], ac = alpha[c];
-    const double2* e2 = reinterpret_cast<const double2*>(e);
-    const int s0 = b * bs, s1 = min(S, s0 + bs);
-    double r00 = 0.0, r01 = -INFINITY, r10 = -INFINITY, r11 = 0.0;
-    for (int s = s0; s < s1; ++s) {
-        const LogTrans t = log_trans(Fc, log_decay(ac, dist[s]));
-        const double2 es = e2[(long long)s * C + c];
-        const double n00 = log_sum2(r00 + t.t00, r01 + t.t10) + es.x;
-        const double n01 = log_sum2(r00 + t.t01, r01 + t.t11) + es.y;
-        const double n10 = log_sum2(r10 + t.t00, r11 + t.t10) + es.x;
-        const double n11 = log_sum2(r10 + t.t01, r11 + t.t11) + es.y;
+    const double Fc = F[c], ac = alpha[c], q0 = 1.0 - Fc;
+    const bool tiny_lane = (Fc > 0.0 && Fc < 0x1p-969) ||
+                           (q0 > 0.0 && q0 < 0x1p-969);
+    const int s0 = b * bs, n = min(S, s0 + bs) - s0;
+    const double2* ep = reinterpret_cast<const double2*>(e) +
+                        (long long)s0 * C + c;
+    const double* dp = dist + s0;
+    auto site = [&](int i) -> LxSite {  // site s0 + i
+        const double x = log_decay(ac, dp[i]);
+        const double2 es = ep[(long long)i * C];
+        LxSite st = lx_site<false>(Fc, q0, x, es);
+        if (lx_site_rare(tiny_lane, x, es)) st = lx_site_slow(Fc, q0, x, es);
+        return st;
+    };
+    Lx r00 = {1.0, 0}, r01 = {0.0, LX_EZERO};
+    Lx r10 = {0.0, LX_EZERO}, r11 = {1.0, 0};
+    double off = 0.0;
+    LxSite cur = site(0);
+    for (int i = 0; i < n; ++i) {
+        const Lx n00 = lx_entry(r00, r01, cur.t00, cur.t10, cur.w0, cur.j0);
+        const Lx n01 = lx_entry(r00, r01, cur.t01, cur.t11, cur.w1, cur.j1);
+        const Lx n10 = lx_entry(r10, r11, cur.t00, cur.t10, cur.w0, cur.j0);
+        const Lx n11 = lx_entry(r10, r11, cur.t01, cur.t11, cur.w1, cur.j1);
+        off += cur.off;
         r00 = n00;
         r01 = n01;
         r10 = n10;
         r11 = n11;
+        cur = site(min(i + 1, n - 1));  // past the end: unused
     }
-    double* out = A + lane * 4;
-    out[0] = r00;
-    out[1] = r01;
-    out[2] = r10;
-    out[3] = r11;
+    double2* out = reinterpret_cast<double2*>(A) + 2 * lane;
+    out[0] = make_double2(log(r00.m) + (double)r00.e * LX_LN2 + off,
+                          log(r01.m) + (double)r01.e * LX_LN2 + off);
+    out[1] = make_double2(log(r10.m) + (double)r10.e * LX_LN2 + off,
+                          log(r11.m) + (double)r11.e * LX_LN2 + off);
 }
 
-__global__ void __launch_bounds__(64)
+// log_combine: a 2x2 log product (row-major) and its steps
+struct L4 {
+    double a00, a01, a10, a11;
+};
+
+__device__ __forceinline__ L4 lc_load(const double* __restrict__ A,
+                                      long long i) {
+    const double2* p = reinterpret_cast<const double2*>(A) + 2 * i;
+    const double2 u = __ldg(p), v = __ldg(p + 1);
+    return {u.x, u.y, v.x, v.y};
+}
+
+// the row vector v times a
+__device__ __forceinline__ double2 lc_vm(double2 v, const L4& a) {
+    return make_double2(log_sum2(v.x + a.a00, v.y + a.a10),
+                        log_sum2(v.x + a.a01, v.y + a.a11));
+}
+
+// a times the column vector w
+__device__ __forceinline__ double2 lc_mv(const L4& a, double2 w) {
+    return make_double2(log_sum2(a.a00 + w.x, a.a01 + w.y),
+                        log_sum2(a.a10 + w.x, a.a11 + w.y));
+}
+
+#ifndef LCB_MAXC
+#error "build with -DLCB_MAXC (utils/cuda_lib.py LOG_COMBINE_MAX_CHUNKS)"
+#endif
+
+// Two levels (csrc/combine_blocks.cu's design in the log semiring): the
+// nb products in nc chunks of L blocks. A CTA holds TN columns x nc chunks
+// x 2 directions, one thread each (threadIdx x, y, z):
+//   1. the direction-0 thread of (column, chunk) forms the chunk's product;
+//   2. the chunk-0 threads walk the nc chunk products, direction 0 forward
+//      from log q (each chunk's entry vector, ll_f), direction 1 backward
+//      from 0 (each chunk's exit vector, ll_b after the sentinel step);
+//   3. each thread reruns its chunk's blocks from the chunk's entry
+//      (direction 0, writing fw_in) or exit vector (1, bw_out).
+// Serial depth L + nc + L steps in place of nb; the next block's product is
+// loaded before the current step.
+__global__ void __launch_bounds__(2 * LCB_MAXC)
     k_log_combine(const double* __restrict__ A,  // [nb, C, 2, 2]
                   const double* __restrict__ F,
                   double* __restrict__ fw_in,   // [nb, C, 2]
                   double* __restrict__ bw_out,  // [nb, C, 2]
                   double* __restrict__ ll_f, double* __restrict__ ll_b,
-                  int C, int nb) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= 2 * C) return;
-    const int c = t % C;
-    const double lq0 = log(1.0 - F[c]), lq1 = log(F[c]);
-    if (t < C) {  // forward from log q
-        double v0 = lq0, v1 = lq1;
-        for (int b = 0; b < nb; ++b) {
-            const long long i = (long long)b * C + c;
-            fw_in[2 * i] = v0;
-            fw_in[2 * i + 1] = v1;
-            const double* a = A + 4 * i;
-            const double n0 = log_sum2(v0 + a[0], v1 + a[2]);
-            const double n1 = log_sum2(v0 + a[1], v1 + a[3]);
-            v0 = n0;
-            v1 = n1;
+                  int C, int nb, int L) {
+    __shared__ L4 sP[LCB_MAXC];        // the chunk products
+    __shared__ double2 sV[LCB_MAXC];   // each chunk's entry vector
+    __shared__ double2 sW[LCB_MAXC];   // each chunk's exit vector
+    const int x = threadIdx.x, k = threadIdx.y, dir = threadIdx.z;
+    const int TN = blockDim.x, nc = blockDim.y;
+    const int c0 = blockIdx.x * TN + x;
+    const bool live = c0 < C;
+    const int c = live ? c0 : C - 1;  // lanes past C store nothing
+    const int i = k * TN + x;
+    const int j0 = k * L, j1 = min(j0 + L, nb);
+    auto at = [&](int j) { return (long long)j * C + c; };
+
+    if (dir == 0) {  // ---- 1. the chunk's product
+        L4 p = lc_load(A, at(j0));
+        L4 a = lc_load(A, at(min(j0 + 1, j1 - 1)));
+        for (int j = j0 + 1; j < j1; ++j) {
+            const L4 nxt = lc_load(A, at(min(j + 1, j1 - 1)));
+            const double2 r0 = lc_vm(make_double2(p.a00, p.a01), a);
+            const double2 r1 = lc_vm(make_double2(p.a10, p.a11), a);
+            p = {r0.x, r0.y, r1.x, r1.y};
+            a = nxt;
         }
-        ll_f[c] = log_sum2(v0, v1);
-    } else {  // backward from 0
-        double w0 = 0.0, w1 = 0.0;
-        for (int b = nb - 1; b >= 0; --b) {
-            const long long i = (long long)b * C + c;
-            bw_out[2 * i] = w0;
-            bw_out[2 * i + 1] = w1;
-            const double* a = A + 4 * i;
-            const double n0 = log_sum2(a[0] + w0, a[1] + w1);
-            const double n1 = log_sum2(a[2] + w0, a[3] + w1);
-            w0 = n0;
-            w1 = n1;
+        sP[i] = p;
+    }
+    __syncthreads();
+
+    if (k == 0) {  // ---- 2. the walks over the chunks
+        const double lq0 = log(1.0 - F[c]), lq1 = log(F[c]);
+        if (dir == 0) {
+            double2 v = make_double2(lq0, lq1);
+            for (int q = 0; q < nc; ++q) {
+                sV[q * TN + x] = v;
+                v = lc_vm(v, sP[q * TN + x]);
+            }
+            if (live) ll_f[c] = log_sum2(v.x, v.y);
+        } else {
+            double2 w = make_double2(0.0, 0.0);
+            for (int q = nc - 1; q >= 0; --q) {
+                sW[q * TN + x] = w;
+                w = lc_mv(sP[q * TN + x], w);
+            }
+            if (live) ll_b[c] = log_sum2(w.x + lq0, w.y + lq1);
         }
-        ll_b[c] = log_sum2(w0 + lq0, w1 + lq1);
+    }
+    __syncthreads();
+
+    // ---- 3. the chunk's blocks again
+    double2* out = reinterpret_cast<double2*>(dir == 0 ? fw_in : bw_out);
+    if (dir == 0) {
+        double2 v = sV[i];
+        L4 a = lc_load(A, at(j0));
+        for (int j = j0; j < j1; ++j) {
+            if (live) out[at(j)] = v;
+            if (j + 1 == j1) break;
+            const L4 nxt = lc_load(A, at(j + 1));
+            v = lc_vm(v, a);
+            a = nxt;
+        }
+    } else {
+        double2 w = sW[i];
+        L4 a = lc_load(A, at(j1 - 1));
+        for (int j = j1 - 1; j >= j0; --j) {
+            if (live) out[at(j)] = w;
+            if (j == j0) break;
+            const L4 nxt = lc_load(A, at(j - 1));
+            w = lc_mv(a, w);
+            a = nxt;
+        }
     }
 }
 
@@ -276,11 +392,19 @@ extern "C" int ngsf_log_block_transfer(const double* e, const double* dist,
     return (int)cudaGetLastError();
 }
 
+// L: blocks a chunk; chunks past LCB_MAXC are refused
 extern "C" int ngsf_log_combine(const double* A, const double* F,
                                 double* fw_in, double* bw_out, double* ll_f,
-                                double* ll_b, int C, int nb, void* stream) {
-    k_log_combine<<<(2 * C + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        A, F, fw_in, bw_out, ll_f, ll_b, C, nb);
+                                double* ll_b, int C, int nb, int L,
+                                void* stream) {
+    if (L < 1 || nb < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    const int nc = (nb + L - 1) / L;
+    if (nc > LCB_MAXC) return (int)cudaErrorInvalidValue;
+    int tn = 32;  // columns a CTA: tn * nc <= LCB_MAXC
+    while (tn > 1 && tn * nc > LCB_MAXC) tn /= 2;
+    k_log_combine<<<(C + tn - 1) / tn, dim3(tn, nc, 2), 0,
+                    (cudaStream_t)stream>>>(A, F, fw_in, bw_out, ll_f, ll_b,
+                                            C, nb, L);
     return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,8 @@ Conventions (0-based):
  - fw/bw:  [S, N, 2]   log forward/backward values
 """
 
+import math
+
 import torch
 
 from ..ops.logsum import logsum2
@@ -196,25 +198,123 @@ def _log_step(v0, v1, t, e0, e1):
             logsum2(v0 + t01, v1 + t11) + e1)
 
 
+# log_block_transfer's linear chain (csrc/log_chain.cu, the LX_ constants):
+# each entry is m * 2^E with m in [1, 2) (or 0, with E = _LX_EZERO) and an
+# integer E, so nothing flushes while the log-space chain stays finite
+_LX_EZERO = -(1 << 29)  # the exponent of a zero entry or transition
+_LX_EFLOOR = -(1 << 27)  # a nonzero entry's exponent saturates here
+_LX_DROP = 60  # a term 2^-61 of the other is below its half ulp: dropped
+_LX_SPLIT = -708.0  # emission gaps below it keep their exponent apart
+_LX_GAP_MIN = -1048576.0  # (2^20 nats) wider gaps count as this one
+_LN2 = 0.6931471805599453
+_INV_LN2 = 1.4426950408889634
+_LN2_HI = 6.93147180369123816490e-01  # 32 bits: j * _LN2_HI is exact
+_LN2_LO = 1.90821492927058770002e-10
+_MANT = (1 << 52) - 1
+_ONE = 1023 << 52
+
+
+def _lx_norm(v):
+    """v (float64, >= 0, normal or 0) as (m in [1, 2) or 0, its binary
+    exponent, v == 0): exact bit operations."""
+    b = v.view(torch.int64)
+    ex = b >> 52
+    zero = ex == 0
+    m = ((b & _MANT) | _ONE).view(torch.float64)
+    return torch.where(zero, torch.zeros_like(m), m), ex - 1023, zero
+
+
+def _lx_trans(T):
+    """A transition (>= 0, subnormal too) as (m, tau): m in [1, 2) and
+    tau its exponent, or (0, _LX_EZERO)."""
+    sub = (T > 0) & (T < 2.0 ** -1022)
+    m, ex, zero = _lx_norm(torch.where(sub, T * 2.0 ** 54, T))
+    ex = ex - torch.where(sub, 54, 0)
+    return m, torch.where(zero, _LX_EZERO, ex)
+
+
+def _lx_pow2(k):
+    """2^k for integer k <= 0 (exact), 0 below -_LX_DROP."""
+    b = (k.clamp_min(-_LX_DROP) + 1023) << 52
+    return torch.where(k < -_LX_DROP, 0.0, b.view(torch.float64))
+
+
+def _lx_emissions(e0, e1):
+    """A site's emissions as (offset, w [..., 2], j [..., 2]): the larger
+    one is the offset and its factor 1 (ties: state 0), the other's factor
+    w 2^j = exp(e_other - offset), with j = 0 but for gaps below
+    _LX_SPLIT (Cody-Waite: w in (1/2, 1]); both factors 0 and the offset
+    0 where both are -inf."""
+    first = e0 >= e1
+    hi = torch.where(first, e0, e1)
+    lo = torch.where(first, e1, e0)
+    dead = hi == -torch.inf
+    hs = torch.where(dead, 0.0, hi)
+    g = lo - hs
+    split = (g < _LX_SPLIT) & (g > -torch.inf)
+    gc = g.clamp_min(_LX_GAP_MIN)
+    j = torch.trunc(gc * _INV_LN2)
+    w = torch.where(split, torch.exp((gc - j * _LN2_HI) - j * _LN2_LO),
+                    torch.exp(g))
+    j = torch.where(split, j.to(torch.int64), 0)
+    one = (~dead).to(e0.dtype)
+    zero = torch.zeros_like(j)
+    return (hs, torch.stack([torch.where(first, one, w),
+                             torch.where(first, w, one)], -1),
+            torch.stack([torch.where(first, zero, j),
+                         torch.where(first, j, zero)], -1))
+
+
+def _lx_step(rm, re, tm, te, w, j):
+    """The four entries after a site, each [..., 2, 2] (row k, state l):
+    entry (k, l) from the row's entries (rm, re)[k, 0] and [k, 1], the
+    transitions (tm, te)[0, l] and [1, l] and state l's emission factor
+    (w, j)[l] [..., 2]: the larger of the two products keeps its
+    exponent, the other is scaled to it (dropped 2^-61 below), the sum
+    times w, renormalised."""
+    P0 = re[..., :, 0, None] + te[..., None, 0, :]
+    P1 = re[..., :, 1, None] + te[..., None, 1, :]
+    Pm = torch.maximum(P0, P1)
+    s = ((rm[..., :, 0, None] * tm[..., None, 0, :]) * _lx_pow2(P0 - Pm)
+         + (rm[..., :, 1, None] * tm[..., None, 1, :]) * _lx_pow2(P1 - Pm))
+    m, ex, zero = _lx_norm(s * w[..., None, :])
+    E = (Pm + j[..., None, :] + ex).clamp_min(_LX_EFLOOR)
+    return m, torch.where(zero, _LX_EZERO, E)
+
+
 def _log_block_transfer_plain(e_prob, dist, F, alpha, bs, nb):
+    """Plain version of csrc/log_chain.cu's k_log_block_transfer, in its
+    order: a block's 2x2 product in linear float64, each entry carrying
+    its own binary exponent, each site's larger log emission summed into
+    a lane offset, logs once at the block's end (the four entries of a
+    lane as one [nb, C, 2, 2] tensor)."""
     PLAIN_CALLS["log_block_transfer"] += 1
     e, d = _log_blocks(e_prob, dist, bs, nb)
-    zero = torch.zeros((nb, F.shape[0]), dtype=e.dtype, device=e.device)
-    ninf = torch.full_like(zero, -torch.inf)
-    r00, r01, r10, r11 = zero, ninf, ninf, zero
+    C = F.shape[0]
+    eye = torch.eye(2, dtype=e.dtype, device=e.device).expand(nb, C, 2, 2)
+    rm = eye.clone()
+    re = torch.where(eye == 1.0, 0, _LX_EZERO)
+    off = torch.zeros((nb, C), dtype=e.dtype, device=e.device)
+    q0 = 1.0 - F
     for j in range(bs):
-        t = _log_trans_elems(F, alpha, d[:, j, None])
-        e0, e1 = e[:, j, :, 0], e[:, j, :, 1]
-        r00, r01 = _log_step(r00, r01, t, e0, e1)
-        r10, r11 = _log_step(r10, r11, t, e0, e1)
-    return torch.stack([r00, r01, r10, r11], -1).view(nb, -1, 2, 2)
+        x, _, _ = _decay(alpha, d[:, j, None])
+        one_m = 1.0 - x
+        T10, T01 = one_m * q0, one_m * F
+        tm, te = _lx_trans(torch.stack([T10 + x, T01, T10, T01 + x],
+                                       -1).view(nb, C, 2, 2))
+        o, w, jw = _lx_emissions(e[:, j, :, 0], e[:, j, :, 1])
+        off = off + o
+        rm, re = _lx_step(rm, re, tm, te, w, jw)
+    A = torch.log(rm) + re.to(e.dtype) * _LN2 + off[..., None, None]
+    return A.view(nb, -1, 2, 2)
 
 
 def log_block_transfer(e_prob, dist, F, alpha, bs, nb):
     """Each block's 2x2 log-semiring product A [nb, C, 2, 2]: row k is the
     JAX forward recursion over the block's sites started from the unit
-    vector e_k (log: 0 at k, -inf elsewhere). CUDA tensors: float64
-    kernel; CPU tensors: the plain version."""
+    vector e_k (log: 0 at k, -inf elsewhere), formed in linear float64
+    with a binary exponent an entry (_log_block_transfer_plain). CUDA
+    tensors: float64 kernel; CPU tensors: the plain version."""
     if not e_prob.is_cuda:
         return _log_block_transfer_plain(e_prob, dist, F, alpha, bs, nb)
     S, C = e_prob.shape[0], e_prob.shape[1]
@@ -228,25 +328,74 @@ def log_block_transfer(e_prob, dist, F, alpha, bs, nb):
     return A
 
 
-def _log_combine_plain(A, F):
+def log_combine_chunk_len(nb):
+    """Blocks a chunk of log_combine's two-level walk: about sqrt(nb), and
+    enough that the chunks fit one CTA (cuda_lib.LOG_COMBINE_MAX_CHUNKS)."""
+    return max(math.isqrt(nb - 1) + 1 if nb > 1 else 1,
+               -(-nb // cuda_lib.LOG_COMBINE_MAX_CHUNKS))
+
+
+def _lvm(v0, v1, a):
+    """The row vector (v0, v1) times the log 2x2 a [..., 2, 2]."""
+    return (logsum2(v0 + a[..., 0, 0], v1 + a[..., 1, 0]),
+            logsum2(v0 + a[..., 0, 1], v1 + a[..., 1, 1]))
+
+
+def _lmv(a, w0, w1):
+    """The log 2x2 a [..., 2, 2] times the column vector (w0, w1)."""
+    return (logsum2(a[..., 0, 0] + w0, a[..., 0, 1] + w1),
+            logsum2(a[..., 1, 0] + w0, a[..., 1, 1] + w1))
+
+
+def _log_combine_plain(A, F, L=None):
+    """Plain version of csrc/log_chain.cu's k_log_combine, in its order:
+    the chunk products of L blocks (default log_combine_chunk_len(nb)),
+    the walks over the chunks (ll_f, ll_b), the reruns inside every
+    chunk, each vectorised over the chunks. The last chunk is padded with
+    identity blocks (0 on the diagonal, -inf off it), exact no-ops of
+    every step here."""
     PLAIN_CALLS["log_combine"] += 1
-    nb = A.shape[0]
+    nb, C = A.shape[0], A.shape[1]
+    L = log_combine_chunk_len(nb) if L is None else L
+    nC = -(-nb // L)
+    eye = torch.full((nC * L - nb, C, 2, 2), -torch.inf, dtype=A.dtype,
+                     device=A.device)
+    eye[..., 0, 0] = eye[..., 1, 1] = 0.0
+    Ap = torch.cat([A, eye]).view(nC, L, C, 2, 2)
+    # ---- 1. the chunk products
+    P = Ap[:, 0]
+    for r in range(1, L):
+        a = Ap[:, r]
+        P = torch.stack([torch.stack(_lvm(P[..., k, 0], P[..., k, 1], a),
+                                     -1) for k in range(2)], -2)
+    # ---- 2. the walks over the chunks from log q and from 0
     lq = log_q(F)
-    fw_in, bw_out = torch.empty_like(A[..., 0]), torch.empty_like(A[..., 0])
+    V = torch.empty((nC, C, 2), dtype=A.dtype, device=A.device)
+    W = torch.empty_like(V)
     v0, v1 = lq[:, 0], lq[:, 1]
-    for b in range(nb):
-        fw_in[b, :, 0], fw_in[b, :, 1] = v0, v1
-        a = A[b]
-        v0, v1 = (logsum2(v0 + a[:, 0, 0], v1 + a[:, 1, 0]),
-                  logsum2(v0 + a[:, 0, 1], v1 + a[:, 1, 1]))
+    for k in range(nC):
+        V[k, :, 0], V[k, :, 1] = v0, v1
+        v0, v1 = _lvm(v0, v1, P[k])
     ll_f = logsum2(v0, v1)
     w0 = w1 = torch.zeros_like(v0)
-    for b in range(nb - 1, -1, -1):
-        bw_out[b, :, 0], bw_out[b, :, 1] = w0, w1
-        a = A[b]
-        w0, w1 = (logsum2(a[:, 0, 0] + w0, a[:, 0, 1] + w1),
-                  logsum2(a[:, 1, 0] + w0, a[:, 1, 1] + w1))
-    return fw_in, bw_out, ll_f, logsum2(w0 + lq[:, 0], w1 + lq[:, 1])
+    for k in range(nC - 1, -1, -1):
+        W[k, :, 0], W[k, :, 1] = w0, w1
+        w0, w1 = _lmv(P[k], w0, w1)
+    ll_b = logsum2(w0 + lq[:, 0], w1 + lq[:, 1])
+    # ---- 3. every chunk's blocks from its entry and its exit vector
+    fw_in = torch.empty((nC, L, C, 2), dtype=A.dtype, device=A.device)
+    bw_out = torch.empty_like(fw_in)
+    v0, v1 = V[..., 0], V[..., 1]
+    w0, w1 = W[..., 0], W[..., 1]
+    for r in range(L):
+        fw_in[:, r, :, 0], fw_in[:, r, :, 1] = v0, v1
+        q = L - 1 - r
+        bw_out[:, q, :, 0], bw_out[:, q, :, 1] = w0, w1
+        if r < L - 1:
+            v0, v1 = _lvm(v0, v1, Ap[:, r])
+            w0, w1 = _lmv(Ap[:, q], w0, w1)
+    return (fw_in.view(nC * L, C, 2)[:nb], bw_out.view(nC * L, C, 2)[:nb],
+            ll_f, ll_b)
 
 
 def log_combine(A, F):
@@ -254,10 +403,17 @@ def log_combine(A, F):
     entry vector from log q; bw_out [nb, C, 2], each block's exit vector
     from 0; ll_f [C]; ll_b [C]). Through block 0 the backward walk is the
     JAX backward's sentinel step, so ll_b = logsum(bw_{-1} + log q) as
-    there (hmm.py:180-190). CUDA tensors: float64 kernel (a thread a
-    column and direction); CPU tensors: the plain version."""
+    there (hmm.py:180-190). In two levels: chunks of
+    log_combine_chunk_len(nb) blocks (_log_combine_plain). CUDA tensors:
+    float64 kernel; CPU tensors: the plain version."""
+    return _log_combine(A, F, log_combine_chunk_len(A.shape[0]))
+
+
+def _log_combine(A, F, L):
+    """log_combine with chunks of L blocks (any L >= 1 whose chunks fit
+    one CTA)."""
     if not A.is_cuda:
-        return _log_combine_plain(A, F)
+        return _log_combine_plain(A, F, L)
     nb, C = A.shape[0], A.shape[1]
     cuda_lib.require(A, "log_combine.A", torch.float64, (nb, C, 2, 2))
     F = F.to(torch.float64).contiguous()
@@ -268,7 +424,7 @@ def log_combine(A, F):
     ll_b = torch.empty_like(ll_f)
     rc = cuda_lib.load().ngsf_log_combine(
         A.data_ptr(), F.data_ptr(), fw_in.data_ptr(), bw_out.data_ptr(),
-        ll_f.data_ptr(), ll_b.data_ptr(), C, nb, cuda_lib.stream())
+        ll_f.data_ptr(), ll_b.data_ptr(), C, nb, L, cuda_lib.stream())
     cuda_lib.check(rc, "log_combine")
     LAUNCHES["log_combine"] += 1
     return fw_in, bw_out, ll_f, ll_b

@@ -58,6 +58,9 @@ COMBINE_MAX_CHUNKS = 128
 # at most one wave of such lanes
 LOG_CHAIN_THREADS = 128
 LOG_CHAIN_CTAS = 5
+# chunks of one CTA of log_combine's two-level walk (csrc/log_chain.cu,
+# built with it as LCB_MAXC; models/hmm.py:log_combine_chunk_len)
+LOG_COMBINE_MAX_CHUNKS = 512
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
 # multiply-adds differently.
@@ -65,6 +68,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", f"-DCB_MAXC={COMBINE_MAX_CHUNKS}",
     f"-DLC_THREADS={LOG_CHAIN_THREADS}", f"-DLC_CTAS={LOG_CHAIN_CTAS}",
+    f"-DLCB_MAXC={LOG_COMBINE_MAX_CHUNKS}",
 )
 
 LAUNCHES = collections.Counter()
@@ -92,7 +96,7 @@ _SIGNATURES = {
     "ngsf_maf_exact": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
     "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
-    "ngsf_log_combine": [_P] * 6 + [_I] * 2 + [_P],
+    "ngsf_log_combine": [_P] * 6 + [_I] * 3 + [_P],
     "ngsf_log_sweep": [_P] * 10 + [_I] * 6 + [_P],
     "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
     "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
