@@ -313,9 +313,6 @@ ORACLE_LL_RTOL, ORACLE_P_ATOL, ORACLE_G_RTOL = 1e-10, 1e-10, 1e-9
 # place of the maximum term's exp (log_common.cuh), 2 adds; logsum3 the
 # same with 2 exps. The site's decay and four log transitions 1 + exp +
 # 6 + 4 log; a forward or backward step of a 2-vector 2 logsum2 + 6 adds.
-# The "_old" entries count the log-space kernels of the parent tree
-# (log_block_transfer in the log semiring, log_combine one serial walk a
-# direction), the bounds PERF.md keeps beside the new ones.
 def flops_log(E, L):
     logsum2 = E + L + 6
     logsum3 = 2 * E + L + 9
@@ -329,12 +326,10 @@ def flops_log(E, L):
         # two scalings by powers of two, their sum and the emission factor
         # (the four logs a lane at the block's end are not counted)
         "log_block_transfer": 2 + E + 1 + 4 + 1 + E + 1 + 4 * 6,
-        "log_block_transfer_old": site + 2 * step,
-        # per (block, column): the chunk product's step (4 logsum2 and 8
-        # adds) and a step of the rerun forward and backward (the walks
-        # over the chunks, one a chunk, are not counted)
-        "log_combine": 4 * logsum2 + 8 + 2 * (2 * logsum2 + 4),
-        "log_combine_old": 2 * step,
+        # per (block, column): what the function needs, a step forward and
+        # one backward (the two-level kernel forms the chunk products
+        # besides, about twice that work, which the bound leaves out)
+        "log_combine": 2 * step,
         # per (site, column): the site (once: the backward pass reads its
         # transitions where the forward pass parked them) and a step
         # forward and backward, then p = exp(fw1 + bw1 - L) (posterior
@@ -1364,36 +1359,24 @@ def window_probe_line(nice, props, loops, shapes, source):
         f"{floors}{other}")
 
 
-def log_combine_launch(nb, C):
-    """(threads a CTA, CTAs) of k_log_combine at nb blocks and C columns,
-    as csrc/log_chain.cu:ngsf_log_combine chooses them: tn columns x nc
-    chunks x 2 directions a CTA, tn * nc at most LOG_COMBINE_MAX_CHUNKS."""
-    from ngsf_hmm_tpu_torch.models.hmm import log_combine_chunk_len
-    from ngsf_hmm_tpu_torch.utils import cuda_lib
-
-    nc = -(-nb // log_combine_chunk_len(nb))
-    tn = 32
-    while tn > 1 and tn * nc > cuda_lib.LOG_COMBINE_MAX_CHUNKS:
-        tn //= 2
-    return 2 * tn * nc, -(-C // tn)
-
-
 def log_probe_line(nice, props, loops, shapes):
     """probe_build's line for a scan-tier kernel (log_chain.cu,
     maf_log.cu) at each shape: registers, spills, shared memory, resident
     CTAs, waves, and its three largest SASS loops with their commonest
     opcodes (the float64 DFMA / DADD / DMUL and MUFU among them). The
     lane kernels run a thread a (block, column) lane, log_combine its
-    CTAs of log_combine_launch; maf_log runs the geometry its template
-    arguments name (maf_log_launch). For log_block_transfer also the SASS
-    instructions of its site loop outside the loops nested in it (its
-    rare sites go out of line, a call) and the issue floor they give at
-    one instruction a cycle of each of the 4 schedulers of 132 SMs."""
+    CTAs of models/hmm.py:log_combine_launch; maf_log runs the geometry its
+    template arguments name (maf_log_launch). For log_block_transfer also
+    the SASS instructions of its site loop outside the loops nested in it
+    and the issue floor they give at one instruction a cycle of each of
+    the 4 schedulers of 132 SMs."""
     import re
 
     if not loops:
         return
     n_ins, lp, flat, _ = loops
+    from ngsf_hmm_tpu_torch.models.hmm import (log_combine_chunk_len,
+                                               log_combine_launch)
     from ngsf_hmm_tpu_torch.ops.maf import maf_log_launch
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
@@ -1402,7 +1385,8 @@ def log_probe_line(nice, props, loops, shapes):
         smem = props["smem"]
         floor = ""
         if "k_log_combine" in nice:
-            threads, ctas_n = log_combine_launch(sh["nb"], sh["C"])
+            _, threads, ctas_n = log_combine_launch(
+                sh["nb"], sh["C"], log_combine_chunk_len(sh["nb"]))
             total = threads * ctas_n
         elif "k_log_" in nice:
             threads, total = lc, sh["nb"] * sh["C"]
@@ -2989,6 +2973,43 @@ SCAN_TIMED = ("log_block_transfer", "log_combine", "log_sweep (grad)",
               "log_sweep (posterior)", "maf_log")
 
 
+def walk_error(torch, A, F, walks):
+    """The largest distance of log_combine's four outputs (walks: fw_in,
+    bw_out, ll_f, ll_b) from the same walks over the same block products
+    A [nb, C, 2, 2], run serially from the same float64 log q in numpy's
+    long double (a 64-bit mantissa on x86): absolute over the finite
+    entries, inf where the two disagree on which entries are -inf."""
+    from ngsf_hmm_tpu_torch.models.hmm import log_q
+
+    ld = np.longdouble
+    if np.finfo(ld).eps > 1e-18:
+        fail("walk_error: numpy's long double is no wider than float64")
+    a = A.cpu().numpy().astype(ld)
+    lq = log_q(F).cpu().numpy().astype(ld)
+    nb = a.shape[0]
+    fw, bw = (np.empty(a.shape[:2] + (2,), ld) for _ in range(2))
+    v0, v1 = lq[:, 0], lq[:, 1]
+    w0 = w1 = np.zeros_like(v0)
+    for j in range(nb):
+        fw[j, :, 0], fw[j, :, 1] = v0, v1
+        v0, v1 = (np.logaddexp(v0 + a[j, :, 0, 0], v1 + a[j, :, 1, 0]),
+                  np.logaddexp(v0 + a[j, :, 0, 1], v1 + a[j, :, 1, 1]))
+        q = nb - 1 - j
+        bw[q, :, 0], bw[q, :, 1] = w0, w1
+        w0, w1 = (np.logaddexp(a[q, :, 0, 0] + w0, a[q, :, 0, 1] + w1),
+                  np.logaddexp(a[q, :, 1, 0] + w0, a[q, :, 1, 1] + w1))
+    exact = (fw, bw, np.logaddexp(v0, v1),
+             np.logaddexp(w0 + lq[:, 0], w1 + lq[:, 1]))
+    err = 0.0
+    for got, ex in zip(walks, exact):
+        g, fin = got.cpu().numpy().astype(ld), np.isfinite(ex)
+        if not np.array_equal(np.isfinite(g), fin):
+            return float("inf")
+        if fin.any():
+            err = max(err, float(np.abs(g[fin] - ex[fin]).max()))
+    return err
+
+
 def scan_diff(torch, name, pairs):
     """The largest difference of --scan-times output pairs (got, want):
     absolute for the posterior rows, log_err for the others."""
@@ -3008,15 +3029,18 @@ def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
     files on its inputs at the gates of the kernels against their plain
     versions (two trees' chain kernels need not give the same bits): the
     block products and the walks at LOG_RTOL, the sweep run on the
-    reference's walks at LOG_G_RTOL and LOG_P_ATOL; the sweep on this
-    tree's own walks is printed beside them, ungated (where |ll_f| is
-    about 8e5 an ulp of the walks' log values is 1.2e-10, and another
-    association of their sums moves them by tens of ulps, the posterior
-    and the gradient by that share); then maf_log on the last N columns
-    of the snapped posterior (a strided view where the columns hold
-    several replicates), the posterior of the reference's walks where
-    there is one, its freq held to the reference's inside the maf_log
-    gates. Returns this shape's record (geometry, times); writes the
+    reference's walks at LOG_G_RTOL and LOG_P_ATOL. Each tree's walks are
+    also held to the same walks over its own block products in long
+    double (walk_error): this tree's may sit no farther from them than the
+    reference's. The sweep on this tree's own walks is held to the
+    reference's at an ulp of max |ll_f| a serial step of a walk (nb) and
+    of a block (bs): where |ll_f| is about 8e5 an ulp of the walks' log
+    values is 1.2e-10, and another association of their sums moves them,
+    and the posterior and the gradient with them, by tens of ulps, above
+    the 1e-9 gates. Then maf_log on the last N columns of the snapped
+    posterior (a strided view where the columns hold several replicates),
+    the posterior of the reference's walks where there is one, its freq
+    held to the reference's inside the maf_log gates. Returns this shape's record (geometry, times); writes the
     outputs and maf_log's freq under out."""
     from ngsf_hmm_tpu_torch.models import hmm as thmm
     from ngsf_hmm_tpu_torch.ops import maf as tmaf
@@ -3074,15 +3098,27 @@ def scan_time_shape(torch, label, chain, gl_t, N, ref, out):
                    LOG_G_RTOL if "grad" in k else LOG_RTOL)
             if not errs[k] <= tol:
                 bad.append(k)
+        ulp = float(np.spacing(float(llf_r.abs().max())))
+        walk = [walk_error(torch, o["log_block_transfer"][0], F_t,
+                           o["log_combine"]) for o in (got, want)]
+        if not walk[0] <= walk[1]:
+            bad.append("log_combine (long double walks)")
+        own_tol = (geom_r[0] + geom_r[1]) * ulp
         own = {k: scan_diff(torch, k, list(zip(got[k], want[k])))
                for k in on_ref}
+        bad += [k + " (own walks)" for k, v in own.items()
+                if not v <= own_tol]
         log(f"[scan times {label}] this tree's chain kernels at the "
             f"reference's geometry bs={geom_r[0]} nb={geom_r[1]} against "
             f"its outputs (the sweep on its walks): max diff "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f"; bit-equal {same}; the sweep on this tree's own walks: "
+            + f"; bit-equal {same}; the walks from the long double walks "
+            f"over each tree's block products: this {walk[0]:.4g} "
+            f"({walk[0] / ulp:.1f} ulp of max |ll_f|, {ulp:.3g}), the "
+            f"reference {walk[1]:.4g} ({walk[1] / ulp:.1f} ulp); the sweep "
+            "on this tree's own walks: "
             + ", ".join(f"{k} {v:.3g}" for k, v in own.items())
-            + f" (|ll_f| up to {float(llf_r.abs().max()):.4g})")
+            + f" (limit (bs + nb) ulp = {own_tol:.3g})")
         if bad:
             fail(f"[scan times {label}] {bad} off the reference run's "
                  "outputs")

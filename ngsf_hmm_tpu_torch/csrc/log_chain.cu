@@ -36,7 +36,10 @@
 //     powers of two with integer exponents (exact), and two exps (the
 //     decay and the smaller emission's factor; the larger one's is 1).
 //     The next site's exps do not depend on the chain, so the loop body
-//     steps the chain and forms the next site in one basic block;
+//     steps the chain and forms the next site in one trip. Every site
+//     takes the one form that keeps a subnormal transition and an
+//     emission gap past exp's range exact: an inline fast form beside
+//     it cost 12 registers (6 CTAs an SM in place of 8) and was slower;
 //   * the sweep's forward pass parks each site's four log transitions in
 //     a scratch ([S, 4, C]; with grad [S, 6, C], the forward values
 //     beside them), and its backward pass reads them there instead of
@@ -69,20 +72,12 @@
 #error "build with -DLC_THREADS and -DLC_CTAS (utils/cuda_lib.py)"
 #endif
 
-// the rare sites' slow path, out of line so that the site loop holds only
-// the common one
-__device__ __noinline__ LxSite lx_site_slow(double F, double q0, double x,
-                                            double2 es) {
-    return lx_site<true>(F, q0, x, es);
-}
-
 // One (block, column) lane: the block's 2x2 product in linear float64 with
 // an exponent an entry (log_common.cuh: Lx), row k from the unit vector
 // e_k, the four logs at the end. The loop body first steps the chain
 // through the current site, then forms the next site (its decay's exp, its
 // emission's exp, the transitions' mantissas and exponents), which does
-// not depend on the chain, so the two interleave in one basic block; the
-// rare sites (lx_site_rare) form again on the slow path, out of line.
+// not depend on the chain, so the two interleave.
 __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
     k_log_block_transfer(const double* __restrict__ e,  // [S, C, 2]
                          const double* __restrict__ dist,
@@ -94,18 +89,12 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
     if (lane >= (long long)nb * C) return;
     const int c = (int)(lane % C), b = (int)(lane / C);
     const double Fc = F[c], ac = alpha[c], q0 = 1.0 - Fc;
-    const bool tiny_lane = (Fc > 0.0 && Fc < 0x1p-969) ||
-                           (q0 > 0.0 && q0 < 0x1p-969);
     const int s0 = b * bs, n = min(S, s0 + bs) - s0;
     const double2* ep = reinterpret_cast<const double2*>(e) +
                         (long long)s0 * C + c;
     const double* dp = dist + s0;
     auto site = [&](int i) -> LxSite {  // site s0 + i
-        const double x = log_decay(ac, dp[i]);
-        const double2 es = ep[(long long)i * C];
-        LxSite st = lx_site<false>(Fc, q0, x, es);
-        if (lx_site_rare(tiny_lane, x, es)) st = lx_site_slow(Fc, q0, x, es);
-        return st;
+        return lx_site(Fc, q0, log_decay(ac, dp[i]), ep[(long long)i * C]);
     };
     Lx r00 = {1.0, 0}, r01 = {0.0, LX_EZERO};
     Lx r10 = {0.0, LX_EZERO}, r11 = {1.0, 0};
@@ -392,16 +381,15 @@ extern "C" int ngsf_log_block_transfer(const double* e, const double* dist,
     return (int)cudaGetLastError();
 }
 
-// L: blocks a chunk; chunks past LCB_MAXC are refused
+// L: blocks a chunk; tn: columns a CTA (models/hmm.py:
+// log_combine_launch); tn * chunks past LCB_MAXC is refused
 extern "C" int ngsf_log_combine(const double* A, const double* F,
                                 double* fw_in, double* bw_out, double* ll_f,
-                                double* ll_b, int C, int nb, int L,
+                                double* ll_b, int C, int nb, int L, int tn,
                                 void* stream) {
-    if (L < 1 || nb < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    if (L < 1 || nb < 1 || C < 1 || tn < 1) return (int)cudaErrorInvalidValue;
     const int nc = (nb + L - 1) / L;
-    if (nc > LCB_MAXC) return (int)cudaErrorInvalidValue;
-    int tn = 32;  // columns a CTA: tn * nc <= LCB_MAXC
-    while (tn > 1 && tn * nc > LCB_MAXC) tn /= 2;
+    if ((long long)tn * nc > LCB_MAXC) return (int)cudaErrorInvalidValue;
     k_log_combine<<<(C + tn - 1) / tn, dim3(tn, nc, 2), 0,
                     (cudaStream_t)stream>>>(A, F, fw_in, bw_out, ll_f, ll_b,
                                             C, nb, L);

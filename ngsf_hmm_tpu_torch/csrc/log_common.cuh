@@ -116,12 +116,10 @@ __device__ __forceinline__ Lx lx_norm(double v, int base) {
     return r;
 }
 
-// a transition T >= 0 as (m, tau); SUB: T may be subnormal (scaled by 2^54
-// first), else it is normal or 0
-template <bool SUB>
+// a transition T >= 0 as (m, tau); a subnormal T is scaled by 2^54 first
 __device__ __forceinline__ Lx lx_trans(double T) {
-    const bool sub = SUB && T > 0.0 && T < LX_TINY;
-    if (SUB) T = sub ? T * 0x1p54 : T;
+    const bool sub = T > 0.0 && T < LX_TINY;
+    T = sub ? T * 0x1p54 : T;
     const int hi = __double2hiint(T);
     const int ex = hi >> 20;
     Lx r;  // as in lx_norm; a subnormal T is never left here
@@ -144,20 +142,18 @@ struct LxSite {
     int j0, j1;
 };
 
-// The site with decay x (log_decay) and emissions es. SLOW: any
-// transition may be subnormal and the emission gap may be below LX_SPLIT
-// (Cody-Waite: the factor in (1/2, 1], its exponent in j); else neither is
-// (lx_site_rare says when), and the results are the same bits.
-template <bool SLOW>
+// The site with decay x (log_decay) and emissions es: an emission gap
+// below LX_SPLIT keeps its exponent apart (Cody-Waite: the factor in
+// (1/2, 1], its exponent in j).
 __device__ __forceinline__ LxSite lx_site(double F, double q0, double x,
                                           double2 es) {
     LxSite st;
     const double one_m = 1.0 - x;
     const double T10 = one_m * q0, T01 = one_m * F;
-    st.t00 = lx_trans<SLOW>(T10 + x);
-    st.t01 = lx_trans<SLOW>(T01);
-    st.t10 = lx_trans<SLOW>(T10);
-    st.t11 = lx_trans<SLOW>(T01 + x);
+    st.t00 = lx_trans(T10 + x);
+    st.t01 = lx_trans(T01);
+    st.t10 = lx_trans(T10);
+    st.t11 = lx_trans(T01 + x);
     const bool first = es.x >= es.y;  // state 0 holds the larger (ties)
     const double hi = first ? es.x : es.y, lo = first ? es.y : es.x;
     const bool dead = hi == -INFINITY;
@@ -165,7 +161,7 @@ __device__ __forceinline__ LxSite lx_site(double F, double q0, double x,
     const double g = lo - hs;
     double w;
     int j = 0;
-    if (SLOW && g < LX_SPLIT && g > -INFINITY) {
+    if (g < LX_SPLIT && g > -INFINITY) {
         const double gc = fmax(g, LX_GAP_MIN);
         j = (int)(gc * LX_INV_LN2);
         w = exp((gc - j * LX_LN2_HI) - j * LX_LN2_LO);
@@ -179,17 +175,6 @@ __device__ __forceinline__ LxSite lx_site(double F, double q0, double x,
     st.j1 = first ? j : 0;
     st.off = hs;
     return st;
-}
-
-// Whether lx_site<false> would differ from lx_site<true>: a subnormal
-// decay, a lane whose F or 1 - F is below 2^-969 (tiny_lane: then
-// (1 - x) F may be subnormal, 1 - x being 0 or at least 2^-53), or an
-// emission gap below LX_SPLIT.
-__device__ __forceinline__ bool lx_site_rare(bool tiny_lane, double x,
-                                             double2 es) {
-    const double g = fmin(es.x, es.y) - fmax(es.x, es.y);
-    return tiny_lane || (x > 0.0 && x < LX_TINY) ||
-           (g < LX_SPLIT && g > -INFINITY);
 }
 
 // Entry (k, l) after a site: a0, a1 the row's entries of states 0 and 1,

@@ -335,6 +335,18 @@ def log_combine_chunk_len(nb):
                -(-nb // cuda_lib.LOG_COMBINE_MAX_CHUNKS))
 
 
+def log_combine_launch(nb, C, L):
+    """(columns a CTA, threads a CTA, CTAs) of k_log_combine at nb blocks,
+    C columns and chunks of L blocks: tn columns x nc chunks x 2
+    directions a CTA, tn the largest power of two up to 32 with tn * nc at
+    most cuda_lib.LOG_COMBINE_MAX_CHUNKS."""
+    nc = -(-nb // L)
+    tn = 32
+    while tn > 1 and tn * nc > cuda_lib.LOG_COMBINE_MAX_CHUNKS:
+        tn //= 2
+    return tn, 2 * tn * nc, -(-C // tn)
+
+
 def _lvm(v0, v1, a):
     """The row vector (v0, v1) times the log 2x2 a [..., 2, 2]."""
     return (logsum2(v0 + a[..., 0, 0], v1 + a[..., 1, 0]),
@@ -422,9 +434,10 @@ def _log_combine(A, F, L):
     bw_out = torch.empty_like(fw_in)
     ll_f = torch.empty((C,), dtype=torch.float64, device=A.device)
     ll_b = torch.empty_like(ll_f)
+    tn = log_combine_launch(nb, C, L)[0]
     rc = cuda_lib.load().ngsf_log_combine(
         A.data_ptr(), F.data_ptr(), fw_in.data_ptr(), bw_out.data_ptr(),
-        ll_f.data_ptr(), ll_b.data_ptr(), C, nb, L, cuda_lib.stream())
+        ll_f.data_ptr(), ll_b.data_ptr(), C, nb, L, tn, cuda_lib.stream())
     cuda_lib.check(rc, "log_combine")
     LAUNCHES["log_combine"] += 1
     return fw_in, bw_out, ll_f, ll_b

@@ -59,7 +59,8 @@ COMBINE_MAX_CHUNKS = 128
 LOG_CHAIN_THREADS = 128
 LOG_CHAIN_CTAS = 5
 # chunks of one CTA of log_combine's two-level walk (csrc/log_chain.cu,
-# built with it as LCB_MAXC; models/hmm.py:log_combine_chunk_len)
+# built with it as LCB_MAXC; models/hmm.py:log_combine_chunk_len,
+# log_combine_launch)
 LOG_COMBINE_MAX_CHUNKS = 512
 # -fmad=false: the grad kernel's primal rows must equal the transfer
 # kernel's output bit for bit, so nvcc may not contract the two streams'
@@ -96,7 +97,7 @@ _SIGNATURES = {
     "ngsf_maf_exact": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     "ngsf_maf_macro": [_P] * 4 + [_L, _I, _I, _P] + [_I] * 3 + [_P],
     "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
-    "ngsf_log_combine": [_P] * 6 + [_I] * 3 + [_P],
+    "ngsf_log_combine": [_P] * 6 + [_I] * 4 + [_P],
     "ngsf_log_sweep": [_P] * 10 + [_I] * 6 + [_P],
     "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
     "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],

@@ -229,7 +229,9 @@ def test_pad_sites_leave_the_linear_product_unchanged():
 def test_chunk_len_fits_one_cta():
     """The chooser: about sqrt(nb) blocks a chunk (30 of 29 chunks at the
     scan path's nb = 844, 7 of 6 at scan_restart's 42), never more chunks
-    than a CTA holds, for every nb log_geometry can give."""
+    than a CTA holds, for every nb log_geometry can give; the launch
+    (log_combine_launch) gives a CTA tn columns of every chunk, within
+    the kernel's thread bound, and covers every column."""
     assert t_hmm.log_combine_chunk_len(844) == 30
     assert t_hmm.log_combine_chunk_len(42) == 7
     assert t_hmm.log_combine_chunk_len(1) == 1
@@ -241,6 +243,12 @@ def test_chunk_len_fits_one_cta():
         assert (nc - 1) * L < nb  # no empty chunk
         if nb <= top * top:
             assert L * L >= nb and (L - 1) * (L - 1) < nb
+        for C in (1, 100, 2_000):
+            tn, threads, ctas = t_hmm.log_combine_launch(nb, C, L)
+            assert 1 <= tn <= 32 and tn * nc <= top
+            assert threads == 2 * tn * nc and ctas * tn >= C > (ctas - 1) * tn
+    assert t_hmm.log_combine_launch(844, 100, 30) == (16, 928, 7)
+    assert t_hmm.log_combine_launch(42, 2_000, 7) == (32, 384, 63)
 
 
 def test_edge_columns_match_jax(edges):
