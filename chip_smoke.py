@@ -14,8 +14,9 @@ needs one CUDA device and nvcc. It
      for maf_window the SASS of a step and its issue floor, for the scan
      tier's log_chain.cu and maf_log.cu their three largest loops
      (probe_build), and reads the float64 operations of CUDA's exp and
-     log from their SASS, which the scan tier's bounds count
-     (probe_transcendentals); then checks on the card that exp(+-0.0) is
+     log and the float32 ones of expf and logf from their SASS, which the
+     scan tier's bounds count (probe_transcendentals); then checks on the
+     card that exp(+-0.0) is
      1.0 and that the one-exp logsum2 / logsum3 of log_common.cuh give
      the bits of the forms with an exp for every term on edge and random
      arguments (check_logsum_identity),
@@ -61,7 +62,8 @@ needs one CUDA device and nvcc. It
      version (candidate 0 of B = 2 equal to B = 1), timed at every shape
      the streams are checked at (the restart path's nb = 136 among them);
      Viterbi with zero path mismatches (both variants; the compat one
-     only at the main shape, where the plain loop takes minutes), its log
+     only at the main shape, where the plain loop, replayed from CUDA
+     graphs a chunk of sites at a time, still takes some 15 s), its log
      line beside the forward chain's derived floor and that chain's own
      measured time, and at 20,011 x 100 and 2,003 x 263 to 3,001 (every
      group of individuals a forward CTA holds) with chromosome breaks,
@@ -79,15 +81,22 @@ needs one CUDA device and nvcc. It
      chunks of one block), and at 20,011 x 40 on extreme inputs (F = 0, 1
      and 1e-300, a subnormal decay, -inf emissions, an 800-nat emission
      gap, rows drifting thousands of nats apart, runs of distance 0) at
-     their geometry's blocks and at blocks of 1,200 sites; maf_log also
+     their geometry's blocks and at blocks of 1,200 sites; the float32
+     instances of the three chain kernels (log_sweep in both modes,
+     parking and recomputing) bit for bit at the ragged check shape, the
+     scan path's and the scan_restart path's, each printed against the
+     float64 kernel on the same inputs, and at 20,011 x 40 on extreme
+     inputs scaled to float32's range (F = 0, 1 and 1e-40, a subnormal
+     float32 decay, emission gaps past -87 nats and past the 2^20-nat
+     clamp, -inf emissions, runs of distance 0); maf_log also
      at 33,333 sites x 20, 33, 100 and 130 individuals, 10,007 x 1,000
      and 1,001 x 4,000 (every segment width its geometry chooses, and
      cells read from
      device memory), printing the passes its warps run against those its
      sites need and the share of cells that take their own prior logs,
-  4. drives nine paths, each with the launch counts set to 0 just before
-     and read just after: init_state -> run_em (min_iters 3, max_iters 4,
-     Viterbi) [-> the three writers]
+  4. drives twelve paths, each with the launch counts set to 0 just
+     before and read just after: init_state -> run_em (min_iters 3,
+     max_iters 4, Viterbi) [-> the three writers]
        main     1,000,000 sites x 100 individuals, float32, freq_est 1 (the
                 default: E-step, (F, alpha) M-step, freq M-step on the
                 macro-stepped est_maf kernels), with the writers; at its
@@ -102,6 +111,16 @@ needs one CUDA device and nvcc. It
                 JAX package's default, numerics "log": the log chain
                 kernels, maf_log, float64 Viterbi), no writers; its final
                 F set beside main's float32 F (the gap printed, no gate),
+       scan32   the same data in float32 on the scan tier (--dtype
+                float32: the float32 chain kernels, maf_log's float32
+                instance, float32 Viterbi), no writers; its final F, freq,
+                tot_lkl and IBD share set beside scan's (no gate),
+       main64   the main path's data and options with a float64 state
+                (--kernel pallas, the JAX CLI's default --dtype): the
+                fused kernels read float32, their outputs are cast to the
+                state's float64; no writers; held against main's final
+                freq and ind_lkl at the bf16 envelopes, its streams,
+                tot_lkl and IBD share printed beside main's,
        fixed    200,003 x 100, freq_est 0 (frequencies held fixed), with
                 the writers,
        exact    200,003 x 20, freq_est 1 on the exact est_maf kernel (fewer
@@ -112,15 +131,22 @@ needs one CUDA device and nvcc. It
                 freq_est 1, best-replicate Viterbi, no writers),
        scan_restart  the same on the scan tier (2,000 columns of the log
                 chain, maf_log a replicate, float64),
+       scan_ld_restart  200,003 x 100 with 4 replicates on the scan tier
+                with --freq_est 2 --e_prob 2 (each replicate's haplotype
+                EM at init and every iteration on its own columns, the
+                chain over 400 columns),
        ld       the main path's data with --e_prob 2 --freq_est 1 (the LD
                 path: haplotype EM at init, LD emissions, the emission-slab
                 kernels and maf_macro every iteration), no writers,
        ld2      the first 200,003 sites of that data with --freq_est 2
                 --e_prob 2 (the haplotype EM every iteration), no writers,
-  5. runs the CLI five times at a small size: on the fused tier (--dtype
+  5. runs the CLI eight times at a small size: on the fused tier (--dtype
      float32 --kernel pallas) with --freq e, freq_est 1; once more with
      --n_rep 3; once with --freq_est 2 --e_prob 2; once with --gl_bf16 1;
-     then once on the default tier (the float64 scan tier).
+     then once on the default tier (the float64 scan tier); then once
+     with --dtype float32 (the float32 scan tier), once with --kernel
+     pallas (a float64 state on the fused tier) and once with --n_rep 3
+     --freq_est 2 --e_prob 2 on the default tier.
 --against LOG also holds main's streams per iteration, final tot_lkl
 and Viterbi IBD share to another tree's log of the same run (the parent's,
 in one call). --before DIR times the scan tier's kernels of another
@@ -349,8 +375,12 @@ def flops_log(E, L):
 
 
 FLOPS_LOG = flops_log(20, 20)
+# the same counts for the float32 instances of log_chain.cu, with expf and
+# logf read from their SASS (FFMA as two, FADD, FMUL and the MUFU
+# approximation each one operation); log_combine walks in float64 in both
+FLOPS_LOG32 = flops_log(10, 10)
 
-# one float64 exp and one float64 log, each alone in a kernel
+# one exp and one log of each float type, each alone in a kernel
 TRANSCENDENTAL_PROBE_CU = r"""
 #include <math.h>
 extern "C" __global__ void probe_exp(const double* x, double* y) {
@@ -358,6 +388,12 @@ extern "C" __global__ void probe_exp(const double* x, double* y) {
 }
 extern "C" __global__ void probe_log(const double* x, double* y) {
     y[threadIdx.x] = log(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_expf(const float* x, float* y) {
+    y[threadIdx.x] = expf(x[threadIdx.x]);
+}
+extern "C" __global__ void probe_logf(const float* x, float* y) {
+    y[threadIdx.x] = logf(x[threadIdx.x]);
 }
 """
 
@@ -419,6 +455,11 @@ KERNELS = {
         "ngsf_hmm_tpu/ops/maf.py:90 (lax.while_loop, no TPU kernel)"),
 }
 LOG_KERNELS = ("log_block_transfer", "log_combine", "log_sweep", "maf_log")
+# the float32 instances of the three chain kernels (the float32 scan tier;
+# maf_log's float32 instance counts under maf_log)
+LOG32_KERNELS = tuple(k + "_f32" for k in LOG_KERNELS[:3])
+for _k in LOG_KERNELS[:3]:
+    KERNELS[_k + "_f32"] = KERNELS[_k]
 STREAM_KERNELS = ("block_transfer_grad", "block_transfer", "bw_sites",
                   "fw_post")
 CHAIN_KERNELS = ("block_transfer_grad", "bw_sites", "fw_post",
@@ -1382,6 +1423,9 @@ def log_probe_line(nice, props, loops, shapes):
 
     lc = cuda_lib.LOG_CHAIN_THREADS
     for label, sh in shapes.items():
+        # each instance at its own float type's geometry (maf_log: float64)
+        if sh["float32"] != ("k_log_" in nice and "<float" in nice):
+            continue
         smem = props["smem"]
         floor = ""
         if "k_log_combine" in nice:
@@ -1587,22 +1631,32 @@ def probe_transcendentals():
     def ops(c):
         return 2 * c.get("DFMA", 0) + c.get("DADD", 0) + c.get("DMUL", 0)
 
-    got = []
-    for fn in ("probe_exp", "probe_log"):
-        if fn not in counts or not ops(counts[fn][0]):
-            fail(f"probe_transcendentals: no float64 operations read for "
+    def ops32(c):
+        return (2 * c.get("FFMA", 0) + c.get("FADD", 0) + c.get("FMUL", 0)
+                + c.get("MUFU", 0))
+
+    got = {}
+    for fn, count, kind in (("probe_exp", ops, "float64"),
+                            ("probe_log", ops, "float64"),
+                            ("probe_expf", ops32, "float32"),
+                            ("probe_logf", ops32, "float32")):
+        if fn not in counts or not count(counts[fn][0]):
+            fail(f"probe_transcendentals: no {kind} operations read for "
                  f"{fn} from the SASS")
         fast, rest, _ = counts[fn]
-        got.append(ops(fast))
-        log(f"[probe build] {fn[6:]} (float64): {ops(fast)} operations to "
-            f"the first EXIT (DFMA {fast.get('DFMA', 0)}, DADD "
-            f"{fast.get('DADD', 0)}, DMUL {fast.get('DMUL', 0)}; MUFU "
-            f"{fast.get('MUFU', 0)}, {sum(fast.values())} instructions), "
-            f"{ops(rest)} more in the branches after it")
-    FLOPS_LOG.update(flops_log(*got))
+        got[fn] = count(fast)
+        d = "D" if kind == "float64" else "F"
+        log(f"[probe build] {fn[6:]} ({kind}): {count(fast)} operations to "
+            f"the first EXIT ({d}FMA {fast.get(d + 'FMA', 0)}, {d}ADD "
+            f"{fast.get(d + 'ADD', 0)}, {d}MUL {fast.get(d + 'MUL', 0)}; "
+            f"MUFU {fast.get('MUFU', 0)}, {sum(fast.values())} "
+            f"instructions), {count(rest)} more in the branches after it")
+    FLOPS_LOG.update(flops_log(got["probe_exp"], got["probe_log"]))
+    FLOPS_LOG32.update(flops_log(got["probe_expf"], got["probe_logf"]))
     log(f"[probe build] float64 operations a (site, column) of the scan "
-        f"tier's kernels: {json.dumps(FLOPS_LOG)}")
-    return tuple(got)
+        f"tier's kernels: {json.dumps(FLOPS_LOG)}; float32 (the float32 "
+        f"instances): {json.dumps(FLOPS_LOG32)}")
+    return got["probe_exp"], got["probe_log"]
 
 
 _transfer_lib = []
@@ -1830,9 +1884,15 @@ def probe_lanes(S, N, S_c, R=20):
     window = dict(sites=bs * nb, M=max(macro_rounds(K0, M)))
     from ngsf_hmm_tpu_torch.models.hmm import log_geometry
 
-    nb_l, nb_lr = log_geometry(S, N)[1], log_geometry(S_c, R * N)[1]
-    scan = {"main": dict(S=S, C=N, N=N, nb=nb_l),
-            "restart": dict(S=S_c, C=R * N, N=N, nb=nb_lr)}
+    import torch
+
+    scan = {}
+    for name, dt in (("", torch.float64), (" float32", torch.float32)):
+        scan["main" + name] = dict(S=S, C=N, N=N, float32=bool(name),
+                                   nb=log_geometry(S, N, dt)[1])
+        scan["restart" + name] = dict(S=S_c, C=R * N, N=N,
+                                      float32=bool(name),
+                                      nb=log_geometry(S_c, R * N, dt)[1])
     return {"log_chain.cu": scan, "maf_log.cu": scan,
             "block_transfer_grad.cu": stream, "block_transfer.cu": stream,
             "maf_window.cu": {"main": window},
@@ -2676,7 +2736,7 @@ def check_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
             ms, pms = ms_c, pms_c
         err = max(err, s_err)
         if S > 500_000:
-            break  # the per-site plain loop is minutes at this size
+            break  # the plain loop is some 15 s a variant at this size
     # bytes the function must move: the log emissions and distances in,
     # the int8 path out (its back-pointer scratch is the kernel's own)
     record("viterbi", err, ms, pms, S * N * (8 + 1) + S * 4 + N * 12,
@@ -3463,6 +3523,204 @@ def check_log_kernels(torch, dev, gl, dist, freq, F, alpha, label, results,
         "scores bit-equal (both variants)")
 
 
+def log_gap64(torch, got, want):
+    """A float32 output against the float64 kernel's on the same inputs:
+    the largest |got - want| / max(|want|, 1) over the entries finite in
+    both, and how many entries are finite in only one (a float32 decay or
+    product may flush where the float64 one does not)."""
+    got = got.to(want.dtype)
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    n_odd = int((torch.isfinite(got) != torch.isfinite(want)).sum())
+    if not bool(fin.any()):
+        return 0.0, n_odd
+    rel = (got - want).abs() / want.abs().clamp_min(1.0)
+    return float(rel[fin].max()), n_odd
+
+
+def check_log32_kernels(torch, dev, gl, dist, freq, F, alpha, label,
+                        results, e_prob=None):
+    """The float32 instances of the scan tier's chain kernels
+    (csrc/log_chain.cu: log_block_transfer_f32, log_combine_f32,
+    log_sweep_f32 in both modes, parking and recomputing) against their
+    plain versions on `dev` at this shape: the float32 emissions of (gl,
+    freq) (or e_prob [S, C, 2], R = C / N flattened replicates, rounded to
+    float32), every output bit for bit, or the run fails. Each is timed
+    beside its plain version and its bound (bytes, or float32 operations
+    over PEAK_F32 with expf and logf read from their SASS; log_combine's
+    float64 walks over PEAK_F64), and its outputs are printed against the
+    float64 kernels' on the same inputs (widened)."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+    from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
+
+    timer = Timer(torch, dev)
+    f32, f64 = torch.float32, torch.float64
+    S = gl.shape[0]
+    dist_t = torch.as_tensor(dist).to(dev, f32)
+    F_t = torch.as_tensor(F).to(dev, f32)
+    a_t = torch.as_tensor(alpha).to(dev, f32)
+    if e_prob is None:
+        e = calc_emission(torch.as_tensor(gl).to(dev).to(f32),
+                          torch.as_tensor(freq).to(dev, f32)[:, None])
+    else:
+        e = e_prob.to(f32)
+    C = e.shape[1]
+    bs, nb = thmm.log_geometry(S, C, f32)
+    log(f"[{label}] scan tier float32: S={S} columns={C} bs={bs} nb={nb} "
+        f"lanes={nb * C}")
+    rec = Recorder(torch, label, results)
+    chain = (e, dist_t, F_t, a_t)
+    chain64 = tuple(t.to(f64) for t in chain)
+    e_bytes = S * C * 8 + S * 4 + C * 8
+
+    A, ms = timer(lambda: thmm.log_block_transfer(*chain, bs, nb))
+    A_p, pms = timer(lambda: thmm._log_block_transfer_plain(*chain, bs, nb),
+                     reps=1, warm=0)
+    err = same_log_bits(torch, f"log_block_transfer_f32 [{label}]", A, A_p)
+    rec.record("log_block_transfer_f32", err, ms, pms, e_bytes + nb * C * 16,
+               S * C * FLOPS_LOG32["log_block_transfer"])
+    del A_p
+    A64 = thmm.log_block_transfer(*chain64, bs, nb)
+    log(f"[{label}] log_block_transfer_f32 against the float64 kernel on "
+        f"the same inputs: %.3g (relative to max(|A|, 1)), %d entries "
+        f"finite in one only" % log_gap64(torch, A, A64))
+
+    out, ms = timer(lambda: thmm.log_combine(A, F_t))
+    out_p, pms = timer(lambda: thmm._log_combine_plain(A, F_t), reps=1,
+                       warm=0)
+    err = same_log_bits(torch, f"log_combine_f32 [{label}]", out, out_p)
+    rec.record("log_combine_f32", err, ms, pms,
+               nb * C * (16 + 32) + C * (4 + 16),
+               nb * C * FLOPS_LOG["log_combine"], peak=PEAK_F64)
+    del out_p
+    rec.finite("log_combine_f32", out[2], out[3])
+    out64 = thmm.log_combine(A64, F_t.to(f64))
+    d_ll = max(float(((a - b).abs() / b.abs()).max())
+               for a, b in zip(out[2:], out64[2:]))
+    log(f"[{label}] log_combine_f32 against the float64 kernel: ll_f, ll_b "
+        f"relative {d_ll:.3g}; |ll_f - ll_b| "
+        f"{float((out[2] - out[3]).abs().max()):.3g} (float64 walks)")
+
+    sweep = chain + tuple(out[:3]) + (bs,)
+    sweep64 = chain64 + tuple(out64[:3]) + (bs,)
+    # the instance log_sweep runs for float32 (recomputing the
+    # transitions) is the kernel's line; the parking one beside it
+    mine = {}
+    for grad in (False, True):
+        want, pms = timer(lambda: thmm._log_sweep_plain(*sweep, grad),
+                          reps=1, warm=0)
+        for park in (True, False):
+            got, t = timer(lambda: thmm.log_sweep(*sweep, grad=grad,
+                                                  park=park))
+            mode = "grad" if grad else "posterior"
+            err = same_log_bits(
+                torch, f"log_sweep_f32 {mode} park={park} [{label}]", got,
+                want)
+            mine[grad, park] = (got, t, pms, err)
+    p, ms_p, pms_p, err_p = mine[False, False]
+    g, ms, pms, err_g = mine[True, False]
+    rec.finite("log_sweep_f32", p, g)
+    in_bytes = e_bytes + nb * C * 32 + C * 8
+    rec.record("log_sweep_f32", max(err_p, err_g), ms, pms,
+               in_bytes + nb * C * 8, S * C * FLOPS_LOG32["log_sweep_grad"])
+    b_ms = max((in_bytes + S * C * 4) / PEAK_BYTES,
+               S * C * FLOPS_LOG32["log_sweep"] / PEAK_F32) * 1e3
+    results["log_sweep_f32"]["posterior_mode"] = dict(
+        ms=ms_p, plain_ms=pms_p, bound_ms=b_ms, max_abs_err=err_p)
+    p64 = thmm.log_sweep(*sweep64)
+    g64 = thmm.log_sweep(*sweep64, grad=True)
+    d_p = float((p.to(f64) - p64).abs().max())
+    d_g = float(((g.to(f64).sum(0) - g64.sum(0)).abs()
+                 / g64.sum(0).abs().clamp_min(1.0)).max())
+    log(f"[{label}] log_sweep_f32: posterior kernel {ms_p:.3f} ms (plain "
+        f"{pms_p:.1f}, bound {b_ms:.4f}); the parking instances: posterior "
+        f"{mine[False, True][1]:.3f} ms, grad {mine[True, True][1]:.3f} ms; "
+        f"against the float64 kernel on the same inputs: p_ibd {d_p:.3g}, "
+        f"gradient sums relative {d_g:.3g}")
+    del mine, p, g, p64, g64, A, A64, out, out64
+
+
+def extreme_chain32(torch, dev, S, N, seed):
+    """extreme_chain's cases scaled to float32's range: F = 0, 1 and 1e-40
+    (a subnormal float32) in columns 0-2, a decay of exp(-90) (subnormal in
+    float32) at one site of columns 0 and 1 (column 0's T11 = x), columns
+    4-9 whose two states' emissions stay 25 nats apart (rows drifting
+    thousands of nats apart), runs of -inf emissions of one state and one
+    site of both, emission gaps of 100 and 300 nats (past expf's range)
+    in columns 13-25 and of 3e6 nats (past the 2^20-nat clamp) in columns
+    26 on, chromosome breaks and runs of sites at distance 0."""
+    rng = np.random.default_rng(seed)
+    e = np.log(rng.uniform(1e-5, 1.0, (S, N, 2)))
+    dist = rng.uniform(0.001, 0.3, S)
+    dist[0] = 1.5
+    dist[S // 3::S // 3] = np.inf
+    dist[100:140] = 0.0
+    F = rng.uniform(0.05, 0.9, N)
+    alpha = rng.uniform(0.01, 0.5, N)
+    F[:3] = (0.0, 1.0, 1e-40)
+    alpha[:2] = 300.0
+    dist[S // 2] = 0.3  # columns 0, 1: x = exp(-90)
+    for c in range(4, 10):
+        k = c % 2
+        e[:, c, 1 - k] = e[:, c, k] - 25.0
+    F[4:10:2], F[5:10:2] = 0.0, 1.0
+    e[1000:1050, 10, 1] = -np.inf
+    e[2000:2010, 11, 0] = -np.inf
+    e[S // 4, 12, :] = -np.inf
+    for c in range(13, N):
+        sites = rng.integers(0, S, 50)
+        k = c % 2
+        gap = 3e6 if c >= 26 else (100.0 if c % 3 else 300.0)
+        e[sites, c, k] = e[sites, c, 1 - k] - gap
+    t = lambda x: torch.as_tensor(x).to(dev, torch.float32)
+    return t(e), t(dist), t(F), t(alpha)
+
+
+def check_log32_extremes(torch, dev, seed, S=20_011, N=40):
+    """The float32 chain kernels bit-equal to their plain versions on
+    extreme_chain32's inputs, at log_geometry's blocks and at blocks of
+    1,200 sites: log_block_transfer_f32, log_combine_f32 (also at chunk
+    length nb), log_sweep_f32 in both modes, parking and recomputing.
+    Prints the -inf entries, the widest gap between a row's finite
+    entries, the sites whose emission gap takes the split form, and the
+    float32 products against the float64 kernel's on the same inputs."""
+    from ngsf_hmm_tpu_torch.models import hmm as thmm
+
+    chain = extreme_chain32(torch, dev, S, N, seed)
+    e, F_t = chain[0], chain[2]
+    g = (e[..., 0] - e[..., 1]).abs()
+    log(f"[extreme float32] S={S} columns={N}: {int((g > 87).sum())} "
+        f"(site, column) gaps past -87 nats, {int((g > 2 ** 20).sum())} "
+        f"past -2^20")
+    for bs, nb in (thmm.log_geometry(S, N, torch.float32),
+                   (1_200, -(-S // 1_200))):
+        what = f"extreme float32 S={S} columns={N} bs={bs} nb={nb}"
+        A = thmm.log_block_transfer(*chain, bs, nb)
+        same_log_bits(torch, f"log_block_transfer_f32 [{what}]", A,
+                      thmm._log_block_transfer_plain(*chain, bs, nb))
+        for L in (thmm.log_combine_chunk_len(nb), nb):
+            same_log_bits(torch, f"log_combine_f32 [{what}] L={L}",
+                          thmm._log_combine(A, F_t, L),
+                          thmm._log_combine_plain(A, F_t, L))
+        fw_in, bw_out, ll_f, _ = thmm.log_combine(A, F_t)
+        sweep = chain + (fw_in, bw_out, ll_f, bs)
+        for grad in (False, True):
+            want = thmm._log_sweep_plain(*sweep, grad)
+            for park in (True, False):
+                same_log_bits(
+                    torch, f"log_sweep_f32 grad={grad} park={park} [{what}]",
+                    thmm.log_sweep(*sweep, grad=grad, park=park), want)
+        A64 = thmm.log_block_transfer(*(t.double() for t in chain), bs, nb)
+        fin = torch.isfinite(A[..., 0]) & torch.isfinite(A[..., 1])
+        gap = (A[..., 0] - A[..., 1]).abs()[fin]
+        keep = torch.arange(N, device=A.device) < 26  # past the clamp: apart
+        log(f"[{what}] -inf entries of A {int(torch.isneginf(A).sum())} of "
+            f"{A.numel()} (float64 kernel {int(torch.isneginf(A64).sum())}), "
+            f"widest gap between a row's finite entries "
+            f"{float(gap.max()):.1f} nats; against the float64 kernel "
+            f"(columns below the clamp) %.3g, %d entries finite in one only"
+            % log_gap64(torch, A[:, keep], A64[:, keep]))
+
+
 def check_viterbi_hooks(torch, dev, S, N, seed):
     """Viterbi against its plain version at S sites with chromosome breaks
     (S not a multiple of the traceback blocks below): both variants, the
@@ -3619,7 +3877,7 @@ def slab_est_maf_step(torch, dev, label, gl, dist, st, gl_bf16):
 
 
 def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
-             need, writers, gl_bf16=False, against=None):
+             need, writers, gl_bf16=False, against=None, dtype=None):
     """init_state -> run_em [-> writers] with the launch counts set to 0
     just before and read just after; fails unless every kernel in `need`
     was launched, no plain version was called and what came out is sound.
@@ -3627,8 +3885,9 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     float32 gl-slab kernel may launch then. Under freq_est 1 with a macro
     schedule (N >= 32) the path ends with slab_est_maf_step. against: the
     (freq, ind_lkl) of a float32 run of the same data, held at the bf16
-    envelopes. Returns (the launch counts, (freq, ind_lkl) of the final
-    state)."""
+    envelopes. dtype: the state's float type (float32 by default; the
+    kernels read float32 either way, as the JAX package's do). Returns
+    (the launch counts, (freq, ind_lkl) of the final state)."""
     from ngsf_hmm_tpu_torch.io.writers import write_geno, write_ibd, write_indF
     from ngsf_hmm_tpu_torch.models.em import (EMOptions, init_state,
                                               rebuild_eprob, run_em)
@@ -3651,10 +3910,11 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
             iters.append((kw["dt"], kw["tot_lkl"], cuda_lib.LAUNCHES[
                 "block_transfer_grad" + ("_bf16" if gl_bf16 else "")]))
 
+    dtype = dtype or torch.float32
     reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
-    state = init_state(gl, freq0, indF0, alpha0, device=dev)
+    state = init_state(gl, freq0, indF0, alpha0, device=dev, dtype=dtype)
     e_prob0 = state.e_prob[:1000].clone()
     peak_init = peak_gib(torch, dev, reset=True)
     with MafTimer(torch, dev) as maf_timer:
@@ -3728,7 +3988,9 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     if any(b < a - slack for a, b in zip(h, h[1:])):
         fail(f"[{label}] total log-likelihood decreased beyond {slack}: {h}")
     indF, alpha, freq = to_np(st.indF), to_np(st.alpha), to_np(st.freq)
-    f32 = np.float32
+    if st.indF.dtype != dtype or st.e_prob.dtype != dtype:
+        fail(f"[{label}] the state is not {dtype}")
+    f32 = np.float32 if dtype == torch.float32 else np.float64
     if not (np.all(indF >= f32(F_MIN)) and np.all(indF <= f32(F_MAX))
             and np.all(alpha >= f32(ALPHA_MIN))
             and np.all(alpha <= f32(ALPHA_MAX))):
@@ -3758,7 +4020,7 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         # fixed point stops at ITER_MAX + 1 passes
         if f_err > 0.2 or corr < 0.3:
             fail(f"[{label}] estimated freq unrelated to the simulated one")
-        want = rebuild_eprob(torch.as_tensor(gl[:1000]).to(dev),
+        want = rebuild_eprob(torch.as_tensor(gl[:1000]).to(dev, dtype),
                              st.freq[:1000])
         if torch.equal(e_head, e_prob0) or not torch.equal(e_head, want):
             fail(f"[{label}] e_prob was not rebuilt from the final freq")
@@ -3773,9 +4035,9 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         d_freq = float(np.abs(freq - against[0]).max())
         d_ll = float((np.abs(finals[1] - against[1])
                       / np.abs(against[1])).max())
-        log(f"[{label}] against the float32 run: freq max diff {d_freq:.3g} "
-            f"(envelope {BF16_FREQ_ATOL}), ind_lkl max rel diff {d_ll:.3g} "
-            f"(envelope {BF16_LL_RTOL})")
+        log(f"[{label}] against the float32 run (main): freq max diff "
+            f"{d_freq:.3g} (envelope {BF16_FREQ_ATOL}), ind_lkl max rel diff "
+            f"{d_ll:.3g} (envelope {BF16_LL_RTOL})")
         if d_freq > BF16_FREQ_ATOL or d_ll > BF16_LL_RTOL:
             fail(f"[{label}] outside the bf16 envelopes: freq {d_freq}, "
                  f"ind_lkl {d_ll}")
@@ -3785,7 +4047,7 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
         if sizes["ibd"] < N * (S + 1) + N * S * 9 or sizes["indF"] < S * 9:
             fail(f"output files too small: {sizes}")
     probes = np.diff([0] + [c for _, _, c in iters])
-    log(f"[{label}] S={S} N={N} float32, gl slabs "
+    log(f"[{label}] S={S} N={N} {str(dtype)[6:]} state, gl slabs "
         f"{'bfloat16' if gl_bf16 else 'float32'}, freq_est {freq_est}: init + "
         f"{res.n_iters} EM iterations + Viterbi in {t_em:.2f} s"
         + (f", with writers {t_all:.2f} s" if writers else ""))
@@ -3800,6 +4062,14 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     SUMMARY[label] = dict(streams=[int(n) for n in probes],
                           tot_lkl=float(iters[-1][1]),
                           ibd=f"{res.path.mean():.4f}")
+    if dtype == torch.float64 and "main" in SUMMARY:
+        m, me = SUMMARY["main"], SUMMARY[label]
+        d_f = np.abs(indF - FINAL_F["main"])
+        log(f"[{label}] beside main (float32 state, the same kernels' "
+            f"inputs): streams {me['streams']} against {m['streams']}, "
+            f"tot_lkl {me['tot_lkl']:.3f} against {m['tot_lkl']:.3f}, IBD "
+            f"share {me['ibd']} against {m['ibd']}; F largest gap "
+            f"{d_f.max():.4g}, mean {d_f.mean():.4g}")
     if dev.type == "cuda":
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
@@ -3808,26 +4078,31 @@ def run_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0, freq_est,
     return counts, finals
 
 
-def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
+def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0,
+                  dtype=None):
     """The scan tier (the JAX package's default: --dtype float64 --kernel
     scan): init_state -> run_em (numerics "log", freq_est 1, min_iters 3,
-    max_iters 4) -> float64 Viterbi on the main path's data in float64, no
+    max_iters 4) -> Viterbi on the main path's data in float64 ("scan"),
+    or with dtype float32 in float32 ("scan32", --dtype float32: the
+    float32 chain kernels, maf_log's float32 instance, float32 Viterbi), no
     writers, with the launch counts set to 0 just before and read just
-    after; fails unless the scan tier's kernels and Viterbi were launched,
-    no plain version was called and what came out is sound. Prints s an
-    iteration, L-BFGS evaluations an iteration, ms of the freq M-step, s
-    of Viterbi and the peak memory (init_state and run_em apart), and the
-    largest gap between its final F and the main path's float32 F (no
-    gate). Returns the launch counts."""
+    after; fails unless the tier's kernels of that type and Viterbi were
+    launched, no plain version was called and what came out is sound.
+    Prints s an iteration, L-BFGS evaluations an iteration, ms of the freq
+    M-step, s of Viterbi and the peak memory (init_state and run_em
+    apart), and the largest gap between its final F and the main path's
+    float32 F (scan32: and scan's F, tot_lkl and IBD share) (no gate).
+    Returns the launch counts."""
     from ngsf_hmm_tpu_torch.models import em as tem
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
     from ngsf_hmm_tpu_torch.utils import cuda_lib
     from ngsf_hmm_tpu_torch.utils.constants import (ALPHA_MAX, ALPHA_MIN,
                                                     F_MAX, F_MIN)
 
-    label = "scan"
+    ftype = dtype or torch.float64
+    f32_tier = ftype == torch.float32
+    label, sfx = ("scan32", "_f32") if f32_tier else ("scan", "")
     S, N = gl.shape[0], gl.shape[1]
-    f64 = torch.float64
     opts = tem.EMOptions(freq_est=1, min_iters=3, max_iters=4, verbose=0)
     iters = []
 
@@ -3836,13 +4111,13 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             iters.append((kw["dt"], kw["tot_lkl"],
-                          cuda_lib.LAUNCHES["log_sweep"]))
+                          cuda_lib.LAUNCHES["log_sweep" + sfx]))
 
     reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
-    gl_t = torch.as_tensor(gl).to(dev).to(f64)
-    dist_t = torch.as_tensor(dist).to(dev, f64)
+    gl_t = torch.as_tensor(gl).to(dev).to(ftype)
+    dist_t = torch.as_tensor(dist).to(dev, ftype)
     state = tem.init_state(gl_t, np.full(S, 0.2), indF0, alpha0, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3860,7 +4135,8 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
     plain = dict(cuda_lib.PLAIN_CALLS)
 
     # ---- what came out
-    need = LOG_KERNELS + ("viterbi",)
+    need = (LOG32_KERNELS + ("maf_log", "viterbi") if f32_tier
+            else LOG_KERNELS + ("viterbi",))
     if dev.type == "cuda":
         if plain:
             fail(f"[{label}] the path called plain versions: {plain}")
@@ -3885,8 +4161,8 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
     to_np = lambda t: t.detach().cpu().numpy()
     indF, alpha, freq = to_np(st.indF), to_np(st.alpha), to_np(st.freq)
     p_ibd = to_np(st.p_ibd)
-    if st.freq.dtype != f64 or st.e_prob.dtype != f64:
-        fail(f"[{label}] the state is not float64")
+    if st.freq.dtype != ftype or st.e_prob.dtype != ftype:
+        fail(f"[{label}] the state is not {ftype}")
     if not (np.all(indF >= F_MIN) and np.all(indF <= F_MAX)
             and np.all(alpha >= ALPHA_MIN) and np.all(alpha <= ALPHA_MAX)):
         fail(f"[{label}] indF / alpha outside their boxes")
@@ -3911,9 +4187,10 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
         fail(f"[{label}] {len(maf_ms)} freq M-steps in {res.n_iters} "
              f"iterations, {len(vit_ms)} Viterbi calls")
     FINAL_FREQ[label] = freq
+    FINAL_F[label] = indF
 
     sweeps = np.diff([0] + [c for _, _, c in iters])
-    log(f"[{label}] S={S} N={N} float64 scan tier (numerics 'log'), "
+    log(f"[{label}] S={S} N={N} {str(ftype)[6:]} scan tier (numerics 'log'), "
         f"freq_est 1: init_state {t_init:.2f} s, init + {res.n_iters} EM "
         f"iterations + Viterbi {t_all:.2f} s")
     for i, ((dt, tot, _), n_sw) in enumerate(zip(iters, sweeps), 1):
@@ -3921,7 +4198,8 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
             f"sweeps {n_sw} (E-step 1 + L-BFGS evaluations {n_sw - 1}), "
             f"L-BFGS outer iterations {res.opt_iters[i - 1]}, freq M-step "
             f"(maf_log) {maf_ms[i - 1]:.3f} ms")
-    log(f"[{label}] Viterbi (float64) {vit_ms[0] / 1e3:.3f} s; mean indF "
+    log(f"[{label}] Viterbi ({str(ftype)[6:]}) {vit_ms[0] / 1e3:.3f} s; mean "
+        f"indF "
         f"{indF.mean():.4f}, mean alpha {alpha.mean():.4f}, Viterbi IBD "
         f"share {res.path.mean():.4f}, mean p_ibd {p_ibd.mean():.4f}")
     if "main" in FINAL_F:
@@ -3932,6 +4210,16 @@ def run_scan_path(torch, dev, gl, dist, freq_true, indF0, alpha0):
     SUMMARY[label] = dict(sweeps=[int(n) for n in sweeps],
                           tot_lkl=float(iters[-1][1]),
                           ibd=f"{res.path.mean():.4f}")
+    if f32_tier and "scan" in SUMMARY:
+        d = np.abs(indF - FINAL_F["scan"])
+        m = SUMMARY["scan"]
+        log(f"[{label}] beside scan (float64, same data): final F largest "
+            f"gap {d.max():.4g} (individual {int(d.argmax()) + 1}), mean gap "
+            f"{d.mean():.4g}; sweeps {SUMMARY[label]['sweeps']} against "
+            f"{m['sweeps']}; tot_lkl {SUMMARY[label]['tot_lkl']:.3f} against "
+            f"{m['tot_lkl']:.3f}; IBD share {SUMMARY[label]['ibd']} against "
+            f"{m['ibd']}; freq largest gap "
+            f"{float(np.abs(freq - FINAL_FREQ['scan']).max()):.4g} (no gate)")
     if dev.type == "cuda":
         log(f"[{label}] peak torch.cuda.max_memory_allocated "
             f"{max(peak_init, peak):.2f} GiB: init_state {peak_init:.2f} GiB, "
@@ -4117,7 +4405,8 @@ def against_maf(path, mine_dir=None):
         fail("; ".join(bad))
 
 
-def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
+def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False,
+                     ld=False):
     """stack_restart_states -> run_em_restarts (R lockstep replicates
     flattened into the columns, freq_est 1, min_iters 3, max_iters 4,
     best-replicate Viterbi; no writers) with the launch counts set to 0
@@ -4125,18 +4414,24 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
     route was launched, no plain version was called and what came out is
     sound. scan: on the float64 scan tier ("scan_restart": the log chain
     over the R * N columns, maf_log a replicate) instead of the fused
-    tier's emission-slab kernels ("restart"). Returns the launch
-    counts."""
+    tier's emission-slab kernels ("restart"). ld (with scan,
+    "scan_ld_restart"): --freq_est 2 --e_prob 2, each replicate's
+    haplotype EM at init (its LD emissions from its own freq0) and every
+    iteration on its own columns, maf_log on its site 0; the log-likelihood
+    gate is the LD path's (finite, |ll_f - ll_b| <= 1e-3), not the
+    monotone one. Returns the launch counts."""
     from ngsf_hmm_tpu_torch.models import em as tem
     from ngsf_hmm_tpu_torch.models.restart import (run_em_restarts,
                                                    stack_restart_states)
     from ngsf_hmm_tpu_torch.ops.emissions import calc_emission
     from ngsf_hmm_tpu_torch.utils import cuda_lib
 
-    label = "scan_restart" if scan else "restart"
+    label = ("scan_ld_restart" if ld else "scan_restart") if scan \
+        else "restart"
     S, N = gl.shape[0], gl.shape[1]
-    opts = tem.EMOptions(numerics="log" if scan else "pallas", freq_est=1,
-                         min_iters=3, max_iters=4, verbose=0)
+    modes = dict(freq_est=2, e_prob_calc=2) if ld else dict(freq_est=1)
+    opts = tem.EMOptions(numerics="log" if scan else "pallas", min_iters=3,
+                         max_iters=4, verbose=0, **modes)
     dtype = torch.float64 if scan else torch.float32
     stream = "log_sweep" if scan else "block_transfer_grad_v1"
     iters = []
@@ -4148,22 +4443,36 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
             iters.append((kw["dt"], kw["tot_lkl"].copy(), kw["active"].copy(),
                           cuda_lib.LAUNCHES[stream]))
 
+    from ngsf_hmm_tpu_torch.models import restart as trestart
+
+    em_iteration, fwbw = trestart.em_iteration, []
+
+    def tapped(*a, **kw):  # records each iteration's max |ll_f - ll_b|
+        out = em_iteration(*a, **kw)
+        fwbw.append(float(out[1].fwbw_maxdiff.max()))
+        return out
+
     reset_peak(torch, dev, label)
     cuda_lib.reset_counts()
     t0 = time.perf_counter()
     gl = torch.as_tensor(gl).to(dev).to(dtype)
     # the ngsF-HMM.sh protocol: random inits, replicate r from seed + r
-    box = [stack_restart_states(gl, R, seed, device=dev)]
+    box = [stack_restart_states(gl, R, seed, device=dev, **modes)]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     peak_init = peak_gib(torch, dev, reset=True)
     timed = (tem, ("est_maf",)) if scan else (None, None)
-    with MafTimer(torch, dev, *timed) as maf_timer:
-        # handed over without a reference kept here: run_em_restarts holds
-        # only its flattened copy
-        res = run_em_restarts(gl, dist, box.pop(), opts, trace=trace,
-                              device=dev)
+    trestart.em_iteration = tapped
+    try:
+        with MafTimer(torch, dev, *timed) as maf_timer, MafTimer(
+                torch, dev, tem, ("haplo_freq",)) as hap_timer:
+            # handed over without a reference kept here: run_em_restarts
+            # holds only its flattened copy
+            res = run_em_restarts(gl, dist, box.pop(), opts, trace=trace,
+                                  device=dev)
+    finally:
+        trestart.em_iteration = em_iteration
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
@@ -4192,9 +4501,13 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
     if hist.shape != (n_it, R) or not np.all(np.isfinite(hist)):
         fail(f"[{label}] non-finite or misshapen replicate totals: {hist}")
     # freq estimated: each replicate ends above its start, and no step
-    # loses more than 1e-4 of |ll| (run_path's gate, per replicate)
+    # loses more than 1e-4 of |ll| (run_path's gate, per replicate); the
+    # haplotype EM's freqs: the LD path's gate
     slack = 1e-4 * np.abs(hist[0])
-    if not np.all(hist[-1] > hist[0]) or np.any(
+    if ld:
+        if len(fwbw) != n_it or max(fwbw) > 1e-3:
+            fail(f"[{label}] |ll_f - ll_b| {fwbw}")
+    elif not np.all(hist[-1] > hist[0]) or np.any(
             np.diff(hist, axis=0) < -slack):
         fail(f"[{label}] a replicate's log-likelihood went wrong: {hist}")
     if res.best_rep != int(np.argmax(res.rep_lkl)) or not np.array_equal(
@@ -4215,19 +4528,24 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
         fail(f"[{label}] Viterbi path not in {{0, 1}} or of the wrong shape")
     if not np.array_equal(freq[res.best_rep], st.freq.cpu().numpy()):
         fail(f"[{label}] the best state's freq is not its replicate's")
-    want = (calc_emission(gl[:1000], st.freq[:1000, None]) if scan else
-            tem.rebuild_eprob(gl[:1000], st.freq[:1000]))
-    if not torch.equal(st.e_prob[:1000], want):
+    # (LD: site 0's emission is calc_emission's, the others the LD pair
+    # emissions of the haplotype EM)
+    head = 1 if ld else 1000
+    want = (calc_emission(gl[:head], st.freq[:head, None]) if scan else
+            tem.rebuild_eprob(gl[:head], st.freq[:head]))
+    if not torch.equal(st.e_prob[:head], want) or not bool(
+            torch.isfinite(st.e_prob).all()):
         fail(f"[{label}] the best replicate's e_prob is not its freq's")
     f_err = np.abs(freq - freq_true[None]).mean(1)
     corr = [float(np.corrcoef(f, freq_true)[0, 1]) for f in freq]
-    maf_ms = maf_timer.ms()
-    if len(maf_ms) != R * n_it:
-        fail(f"[{label}] {len(maf_ms)} est_maf calls in {n_it} iterations "
-             f"of {R} replicates")
+    maf_ms, hap_ms = maf_timer.ms(), hap_timer.ms()
+    if len(maf_ms) != R * n_it or len(hap_ms) != (R * n_it if ld else 0):
+        fail(f"[{label}] {len(maf_ms)} est_maf and {len(hap_ms)} haplotype "
+             f"EM calls in {n_it} iterations of {R} replicates")
 
     log(f"[{label}] S={S} N={N} R={R} ({R * N} columns) "
-        f"{'float64 scan tier' if scan else 'float32'} freq_est 1: "
+        f"{'float64 scan tier' if scan else 'float32'} "
+        f"{'--freq_est 2 --e_prob 2' if ld else 'freq_est 1'}: "
         f"init {t_init:.2f} s, init + {n_it} iterations + Viterbi "
         f"{t_all:.2f} s")
     probes = np.diff([0] + [c for _, _, _, c in iters])
@@ -4242,7 +4560,9 @@ def run_restart_path(torch, dev, gl, dist, freq_true, R, seed, scan=False):
             + f", L-BFGS outer iterations {best.opt_iters[i - 1]}, freq "
             f"M-step {sum(m):.3f} ms ({R} "
             f"{'maf_log' if scan else 'est_maf_slab'} calls, "
-            f"{min(m):.3f}-{max(m):.3f} ms each)")
+            f"{min(m):.3f}-{max(m):.3f} ms each)"
+            + (f", haplotype EM {sum(hap_ms[(i - 1) * R:i * R]) / 1e3:.3f} "
+               f"s, |ll_f - ll_b| {fwbw[i - 1]:.3g}" if ld else ""))
     for r in range(R):
         log(f"[{label}] replicate {r + 1}: logLkl {res.rep_lkl[r]:.3f} "
             f"({res.rep_iters[r]} iters), mean |freq - simulated| {f_err[r]:.4f}, correlation {corr[r]:.3f}"
@@ -4399,17 +4719,20 @@ def run_ld_path(torch, dev, label, gl, dist, freq_true, indF0, alpha0,
     return counts
 
 
-def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False,
+def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, tier="pallas32",
             keep=None, cwd=None):
     """python -m ngsf_hmm_tpu_torch once at a small size on files made
-    with numpy, on the fused tier (--dtype float32 --kernel pallas), or
-    with scan on the default tier (no --dtype / --kernel: the float64 scan
-    tier) (n_rep > 1: that many lockstep restarts, the best replicate's
-    files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the JAX
-    package's warning on stderr; gl_bf16: --gl_bf16 1 at 40 individuals,
-    the slab est_maf route); exit code and outputs checked. keep: a path
-    prefix the .indF and .ibd outputs are copied to; cwd: the directory
-    whose package runs (another tree's; this script's by default)."""
+    with numpy, on the tier named: "pallas32" the fused tier (--dtype
+    float32 --kernel pallas), "scan" the default tier (no --dtype /
+    --kernel: the float64 scan tier), "scan32" --dtype float32 alone (the
+    float32 scan tier), "pallas64" --kernel pallas alone (the fused tier
+    with a float64 state) (n_rep > 1: that many lockstep restarts, the best
+    replicate's files; ld: --freq_est 2 --e_prob 2 at 40 individuals, the
+    JAX package's warning on stderr; gl_bf16: --gl_bf16 1 at 40
+    individuals, the slab est_maf route); exit code and outputs checked.
+    keep: a path prefix the .indF and .ibd outputs are copied to; cwd: the
+    directory whose package runs (another tree's; this script's by
+    default)."""
     S, N = 5000, 40 if ld or gl_bf16 else 12
     gl, dist, _, _, _ = simulate(S, N, seed + 1, n_chrom=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4434,8 +4757,9 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False,
             cmd += ["--e_prob", "2"]
         if gl_bf16:
             cmd += ["--gl_bf16", "1"]
-        if not scan:
-            cmd += ["--dtype", "float32", "--kernel", "pallas"]
+        cmd += {"scan": [], "scan32": ["--dtype", "float32"],
+                "pallas64": ["--kernel", "pallas"],
+                "pallas32": ["--dtype", "float32", "--kernel", "pallas"]}[tier]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                            cwd=cwd or os.path.dirname(
                                os.path.abspath(__file__)))
@@ -4477,8 +4801,10 @@ def run_cli(dev, seed, n_rep=1, ld=False, gl_bf16=False, scan=False,
                      f"header {head}")
             final += f"; {best[0].strip()}"
         log(f"[cli] exit 0 at S={S} N={N} --n_rep {n_rep}"
-            + (" (default tier: float64 scan)" if scan else
-               " --dtype float32 --kernel pallas")
+            + {"scan": " (default tier: float64 scan)",
+               "scan32": " --dtype float32 (the float32 scan tier)",
+               "pallas64": " --kernel pallas (float64 state)",
+               "pallas32": " --dtype float32 --kernel pallas"}[tier]
             + (" --freq_est 2 --e_prob 2" if ld else "")
             + (" --gl_bf16 1" if gl_bf16 else "")
             + f": {final.strip()}")
@@ -4633,6 +4959,8 @@ def main():
     from ngsf_hmm_tpu_torch.models.hmm import log_geometry
     check_log_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c,
                       "check", results, chunks=(log_geometry(S_c, N)[1],))
+    check_log32_kernels(torch, dev, gl_c, dist_c, freq_c, F0_c, a0_c,
+                        "check", results)
     S_o, N_o = (211, 5) if args.rehearse else (2_003, 33)
     gl_o, dist_o, freq_o, F0_o, a0_o = simulate(S_o, N_o, args.seed + 23)
     dist_o[S_o // 2] = 0.0  # a site at distance 0: the identity
@@ -4641,6 +4969,8 @@ def main():
                       chunks=(1, log_geometry(S_o, N_o)[1]))
     check_log_extremes(torch, dev, args.seed + 37,
                        *((2_411, 20) if args.rehearse else (20_011, 40)))
+    check_log32_extremes(torch, dev, args.seed + 41,
+                         *((2_411, 30) if args.rehearse else (20_011, 40)))
     # maf_log at every segment width its geometry chooses
     check_maf_log_shapes(torch, dev, args.seed + 31, results, tuple(
         (n, 101) for n, _ in MAF_LOG_NS) if args.rehearse else MAF_LOG_NS)
@@ -4694,6 +5024,8 @@ def main():
     # data in float64): their lines keep this shape's times
     check_log_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape",
                       results)
+    check_log32_kernels(torch, dev, gl, dist, freq, F0, a0, "main shape",
+                        results)
     rows, p_m, prep, p_slab, p_raw, slab_raw = maf_rows_inputs(
         torch, dev, gl, dist, freq, F0, a0, raw=True)
     check_maf_macro(torch, rows, p_m, Recorder(torch, "ld shape", results),
@@ -4733,6 +5065,8 @@ def main():
     label_r, at_restart = f"restart shape R={R}", {}
     check_log_kernels(torch, dev, gl_c, dist_c, None, flat.indF, flat.alpha,
                       label_r, at_restart, e_prob=flat.e_prob)
+    check_log32_kernels(torch, dev, gl_c, dist_c, None, flat.indF,
+                        flat.alpha, label_r, at_restart, e_prob=flat.e_prob)
     del flat
     for name, r in at_restart.items():
         mine = results[name]
@@ -4763,6 +5097,19 @@ def main():
     t0 = time.perf_counter()
     paths["scan"] = run_scan_path(torch, dev, gl, dist, freq, F0, a0)
     log(f"[scan] path done in {time.perf_counter() - t0:.1f} s")
+    # the same on the float32 scan tier (--dtype float32)
+    t0 = time.perf_counter()
+    paths["scan32"] = run_scan_path(torch, dev, gl, dist, freq, F0, a0,
+                                    dtype=torch.float32)
+    log(f"[scan32] path done in {time.perf_counter() - t0:.1f} s")
+    # the fused tier with a float64 state (--kernel pallas, the JAX CLI's
+    # default --dtype): its kernels read float32, held against main
+    t0 = time.perf_counter()
+    paths["main64"], _ = run_path(
+        torch, dev, "main64", gl, dist, freq, F0, a0, 1,
+        CHAIN_KERNELS + SLAB_KERNELS + ("maf_macro_slab",), writers=False,
+        against=finals["main"], dtype=torch.float64)
+    log(f"[main64] path done in {time.perf_counter() - t0:.1f} s")
     # ld2 on the first check-shape count of the same sites: its haplotype
     # EM every iteration is about 15 s at 10^6 sites (plain torch), which
     # would put the script above half its time limit
@@ -4787,6 +5134,13 @@ def main():
                                              freq_c, R, args.seed + 5,
                                              scan=True)
     log(f"[scan_restart] path done in {time.perf_counter() - t0:.1f} s")
+    # the scan tier's replicates in the LD modes (--n_rep 4 --freq_est 2
+    # --e_prob 2): the haplotype EM of each replicate on its columns
+    t0 = time.perf_counter()
+    paths["scan_ld_restart"] = run_restart_path(
+        torch, dev, gl_c, dist_c, freq_c, 2 if args.rehearse else 4,
+        args.seed + 9, scan=True, ld=True)
+    log(f"[scan_ld_restart] path done in {time.perf_counter() - t0:.1f} s")
     del gl_c
     if args.against_maf:
         against_maf(args.against_maf)
@@ -4803,7 +5157,11 @@ def main():
     run_cli(dev, args.seed, n_rep=3)
     run_cli(dev, args.seed, ld=True)
     run_cli(dev, args.seed, gl_bf16=True)
-    run_cli(dev, args.seed, scan=True)
+    run_cli(dev, args.seed, tier="scan")
+    # the three command lines this slice lifted the refusals of
+    run_cli(dev, args.seed, tier="scan32")
+    run_cli(dev, args.seed, tier="pallas64")
+    run_cli(dev, args.seed, n_rep=3, ld=True, tier="scan")
 
     if args.rehearse:
         log("rehearsal on the CPU finished; no result is printed for it")

@@ -339,27 +339,32 @@ def _refuse_unported(p):
 
     from .models.em import _refuse
 
-    try:  # the tier's float type: models/em.TIER_DTYPES
-        _refuse(numerics="log" if kernel == "scan" else "pallas",
+    try:  # each tier's float types (models/em.TIER_DTYPES) and modes
+        _refuse(freq_est=p["freq_est"], e_prob_calc=p["e_prob"],
+                n_rep=max(p["n_rep"], 1),
+                numerics="log" if kernel == "scan" else "pallas",
                 dtype=getattr(torch, dtype))
-    except NotImplementedError as e:
-        error("main", f"--dtype {dtype} --kernel {kernel}: {e}")
-    if p["n_rep"] > 1 and (p["freq_est"] == 2 or p["e_prob"] != 1):
-        item = ("log-tier --n_rep with the LD modes" if kernel == "scan"
-                else "models/hmm_blocked.py")
-        error("main", f"--freq_est {p['freq_est']} / --e_prob {p['e_prob']} "
-                      f"with --n_rep is not ported yet (ROADMAP queue 1: "
-                      f"'{item}')")
+    except (NotImplementedError, TypeError) as e:
+        error("main", f"--dtype {dtype} --kernel {kernel} --freq_est "
+                      f"{p['freq_est']} --e_prob {p['e_prob']} --n_rep "
+                      f"{p['n_rep']} is not ported yet: {e}")
     if p["opt"] != "speed":
-        error("main", "--opt compat is not ported yet")
+        error("main", "--opt compat is not ported yet (ROADMAP queue 1: "
+                      "'--opt compat')")
     if p["n_rep"] < 1:
         error("main", "invalid number of replicates (--n_rep)!")
-    for flag in ("checkpoint", "mesh", "coordinator", "profile"):
+    for flag, item in (("checkpoint", "Checkpoints, for both tiers"),
+                       ("mesh", "parallel/"), ("coordinator", "parallel/"),
+                       ("profile", "The rest")):
         if p[flag] is not None:
-            error("main", f"--{flag} is not ported yet")
-    if p["resume"] or p["stream_chunk"] or p["stream_file"]:
-        error("main", "--resume / --stream_chunk / --stream_file are not "
-                      "ported yet")
+            error("main", f"--{flag} is not ported yet (ROADMAP queue 1: "
+                          f"'{item}')")
+    if p["resume"]:
+        error("main", "--resume is not ported yet (ROADMAP queue 1: "
+                      "'Checkpoints, for both tiers')")
+    if p["stream_chunk"] or p["stream_file"]:
+        error("main", "--stream_chunk / --stream_file are not ported yet "
+                      "(ROADMAP queue 1: 'Streaming')")
     if p["device"] not in ("cuda", "cpu") and not str(
             p["device"]).startswith("cuda:"):
         error("main", f"invalid --device {p['device']!r} (cuda|cpu)")

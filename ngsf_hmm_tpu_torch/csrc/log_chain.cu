@@ -1,5 +1,6 @@
-// The float64 log-space chain of the scan tier (--dtype float64 --kernel
-// scan, numerics "log"), in three kernels. Port-only: the JAX package runs
+// The log-space chain of the scan tier (--kernel scan, numerics "log"), in
+// three kernels, each in float64 and in float32 (--dtype float64, the
+// default, or float32: the state's type). Port-only: the JAX package runs
 // this tier as lax.scans over the sites (ngsf_hmm_tpu/models/hmm.py:
 // forward :51, forward_loglik :72, loglik_value_and_grad :94, backward
 // :158, posteriors :192), which have no TPU kernel. One thread a site
@@ -9,7 +10,7 @@
 // pad or zero-distance site is the identity:
 //   1. log_block_transfer: each (block, column) lane forms the block's
 //      2x2 log product, row k the forward recursion started from the unit
-//      vector e_k: in linear float64, each entry with its own binary
+//      vector e_k: in linear arithmetic, each entry with its own binary
 //      exponent, each site's larger log emission summed into a lane
 //      offset, four logs at the block's end (log_common.cuh: Lx);
 //   2. log_combine: in two levels, chunks of about sqrt(nb) blocks: their
@@ -18,15 +19,28 @@
 //      from 0 (each chunk's exit vector; through block 0 it is the JAX
 //      backward's sentinel step, so ll_b folds in site 0's emission and
 //      then log q, as the Fw/Bw check of EM.cpp:166-170 wants), then each
-//      chunk's blocks again from its entry and exit vectors;
+//      chunk's blocks again from its entry and exit vectors. The walks,
+//      their vectors and the log-likelihoods are float64 in both
+//      instances (the float32 one reads float32 products): walked in
+//      float32 at 10^6 sites, ll_f and ll_b would lie about 0.06 nats
+//      apart (an ulp at 8e5), past the Fw/Bw check's 0.001, as the fused
+//      tier's combine keeps its log offsets in float64 for the same
+//      reason;
 //   3. log_sweep: each lane reruns its block forward from its entry and
 //      backward from its exit. Without grad it writes p_ibd = exp(fw1 +
 //      bw1 - ll_f) (the forward pass parks fw1 in p); with grad it parks
 //      fw in its scratch and sums the Fisher-identity terms of
 //      dL/dF and dL/dalpha over its block (site 0's lane also the
 //      initial-distribution term), one partial sum a (block, column).
+//      The float32 instance first takes each lane's vectors relative to
+//      the log-likelihood, in float64: entry fw_in + s - ll_f and exit
+//      bw_out - s (s the exit's larger entry), so its float32 chain and
+//      its posteriors see values of a block's size, not of the whole
+//      chain's (10^5-10^6 nats), and subtract 0 for ll_f; the float32
+//      tier's blocks are at most 128 sites (models/hmm.py:
+//      LOG_F32_MAX_BS), a few hundred nats.
 // What bounds each, and what the design does about it:
-//   * (1) and (3) are bound by float64 operations. In the log semiring a
+//   * (1) and (3) are bound by float operations. In the log semiring a
 //     site step takes one exp for the decay, four logs for the transitions
 //     and two (forward, backward) or four (the product's two rows)
 //     logsum2, each an exp and a log; in SASS the CUDA exp and log are
@@ -49,6 +63,8 @@
 //     recomputing instance needs ([S, 2, C] with grad, none without), so
 //     models/hmm.py:log_sweep parks only while it fits in a share of the
 //     card's free memory (LOG_PARK_SHARE) and else runs that instance;
+//     in float32, whose expf and logf cost less than the scratch's
+//     traffic, it always runs the recomputing one;
 //   * grad and posterior modes are two instances of one template, the
 //     block's first site (its forward vector is the entry vector, no step
 //     after it) and site 0's initial-distribution term peeled out of the
@@ -72,39 +88,58 @@
 #error "build with -DLC_THREADS and -DLC_CTAS (utils/cuda_lib.py)"
 #endif
 
-// One (block, column) lane: the block's 2x2 product in linear float64 with
-// an exponent an entry (log_common.cuh: Lx), row k from the unit vector
-// e_k, the four logs at the end. The loop body first steps the chain
-// through the current site, then forms the next site (its decay's exp, its
-// emission's exp, the transitions' mantissas and exponents), which does
-// not depend on the chain, so the two interleave.
+// a site's two log emissions, loaded as one 16-byte (float64) or 8-byte
+// (float32) pair
+template <typename T>
+struct Pair;
+template <>
+struct Pair<double> {
+    using V = double2;
+};
+template <>
+struct Pair<float> {
+    using V = float2;
+};
+
+// One (block, column) lane: the block's 2x2 product in linear arithmetic
+// with an exponent an entry (log_common.cuh: Lx), row k from the unit
+// vector e_k, the four logs at the end. The loop body first steps the
+// chain through the current site, then forms the next site (its decay's
+// exp, its emission's exp, the transitions' mantissas and exponents),
+// which does not depend on the chain, so the two interleave.
+template <typename T>
 __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
-    k_log_block_transfer(const double* __restrict__ e,  // [S, C, 2]
-                         const double* __restrict__ dist,
-                         const double* __restrict__ F,
-                         const double* __restrict__ alpha,
-                         double* __restrict__ A,  // [nb, C, 2, 2]
+    k_log_block_transfer(const T* __restrict__ e,  // [S, C, 2]
+                         const T* __restrict__ dist,
+                         const T* __restrict__ F,
+                         const T* __restrict__ alpha,
+                         T* __restrict__ A,  // [nb, C, 2, 2]
                          int S, int C, int bs, int nb) {
+    using V = typename Pair<T>::V;
     const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (lane >= (long long)nb * C) return;
     const int c = (int)(lane % C), b = (int)(lane / C);
-    const double Fc = F[c], ac = alpha[c], q0 = 1.0 - Fc;
+    const T Fc = F[c], ac = alpha[c], q0 = (T)1 - Fc;
     const int s0 = b * bs, n = min(S, s0 + bs) - s0;
-    const double2* ep = reinterpret_cast<const double2*>(e) +
-                        (long long)s0 * C + c;
-    const double* dp = dist + s0;
-    auto site = [&](int i) -> LxSite {  // site s0 + i
-        return lx_site(Fc, q0, log_decay(ac, dp[i]), ep[(long long)i * C]);
+    const V* ep = reinterpret_cast<const V*>(e) + (long long)s0 * C + c;
+    const T* dp = dist + s0;
+    auto site = [&](int i) -> LxSite<T> {  // site s0 + i
+        const V es = ep[(long long)i * C];
+        return lx_site(Fc, q0, log_decay(ac, dp[i]), es.x, es.y);
     };
-    Lx r00 = {1.0, 0}, r01 = {0.0, LX_EZERO};
-    Lx r10 = {0.0, LX_EZERO}, r11 = {1.0, 0};
-    double off = 0.0;
-    LxSite cur = site(0);
+    Lx<T> r00 = {(T)1, 0}, r01 = {(T)0, LX_EZERO};
+    Lx<T> r10 = {(T)0, LX_EZERO}, r11 = {(T)1, 0};
+    T off = 0;
+    LxSite<T> cur = site(0);
     for (int i = 0; i < n; ++i) {
-        const Lx n00 = lx_entry(r00, r01, cur.t00, cur.t10, cur.w0, cur.j0);
-        const Lx n01 = lx_entry(r00, r01, cur.t01, cur.t11, cur.w1, cur.j1);
-        const Lx n10 = lx_entry(r10, r11, cur.t00, cur.t10, cur.w0, cur.j0);
-        const Lx n11 = lx_entry(r10, r11, cur.t01, cur.t11, cur.w1, cur.j1);
+        const Lx<T> n00 = lx_entry(r00, r01, cur.t00, cur.t10, cur.w0,
+                                   cur.j0);
+        const Lx<T> n01 = lx_entry(r00, r01, cur.t01, cur.t11, cur.w1,
+                                   cur.j1);
+        const Lx<T> n10 = lx_entry(r10, r11, cur.t00, cur.t10, cur.w0,
+                                   cur.j0);
+        const Lx<T> n11 = lx_entry(r10, r11, cur.t01, cur.t11, cur.w1,
+                                   cur.j1);
         off += cur.off;
         r00 = n00;
         r01 = n01;
@@ -112,14 +147,15 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
         r11 = n11;
         cur = site(min(i + 1, n - 1));  // past the end: unused
     }
-    double2* out = reinterpret_cast<double2*>(A) + 2 * lane;
-    out[0] = make_double2(log(r00.m) + (double)r00.e * LX_LN2 + off,
-                          log(r01.m) + (double)r01.e * LX_LN2 + off);
-    out[1] = make_double2(log(r10.m) + (double)r10.e * LX_LN2 + off,
-                          log(r11.m) + (double)r11.e * LX_LN2 + off);
+    constexpr T LN2 = LxK<T>::LN2;
+    V* out = reinterpret_cast<V*>(A) + 2 * lane;
+    out[0] = {lc_log(r00.m) + (T)r00.e * LN2 + off,
+              lc_log(r01.m) + (T)r01.e * LN2 + off};
+    out[1] = {lc_log(r10.m) + (T)r10.e * LN2 + off,
+              lc_log(r11.m) + (T)r11.e * LN2 + off};
 }
 
-// log_combine: a 2x2 log product (row-major) and its steps
+// log_combine: a 2x2 log product (row-major) and its steps, in float64
 struct L4 {
     double a00, a01, a10, a11;
 };
@@ -129,6 +165,13 @@ __device__ __forceinline__ L4 lc_load(const double* __restrict__ A,
     const double2* p = reinterpret_cast<const double2*>(A) + 2 * i;
     const double2 u = __ldg(p), v = __ldg(p + 1);
     return {u.x, u.y, v.x, v.y};
+}
+
+// the float32 products, widened exactly
+__device__ __forceinline__ L4 lc_load(const float* __restrict__ A,
+                                      long long i) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(A) + i);
+    return {(double)u.x, (double)u.y, (double)u.z, (double)u.w};
 }
 
 // the row vector v times a
@@ -157,9 +200,11 @@ __device__ __forceinline__ double2 lc_mv(const L4& a, double2 w) {
 //   3. each thread reruns its chunk's blocks from the chunk's entry
 //      (direction 0, writing fw_in) or exit vector (1, bw_out).
 // Serial depth L + nc + L steps in place of nb; the next block's product is
-// loaded before the current step.
+// loaded before the current step. T: the products' type (the tier's); F,
+// the walks and every output are float64.
+template <typename T>
 __global__ void __launch_bounds__(2 * LCB_MAXC)
-    k_log_combine(const double* __restrict__ A,  // [nb, C, 2, 2]
+    k_log_combine(const T* __restrict__ A,  // [nb, C, 2, 2]
                   const double* __restrict__ F,
                   double* __restrict__ fw_in,   // [nb, C, 2]
                   double* __restrict__ bw_out,  // [nb, C, 2]
@@ -238,30 +283,31 @@ __global__ void __launch_bounds__(2 * LCB_MAXC)
 
 // One backward step of the 2-vector (w0, w1) through site s's
 // transitions t and emissions es.
-__device__ __forceinline__ void log_back(const LogTrans& t, double2 es,
-                                         double& w0, double& w1) {
-    const double n0 = log_sum2(t.t00 + es.x + w0, t.t01 + es.y + w1);
-    const double n1 = log_sum2(t.t10 + es.x + w0, t.t11 + es.y + w1);
+template <typename T, typename V>
+__device__ __forceinline__ void log_back(const LogTrans<T>& t, V es, T& w0,
+                                         T& w1) {
+    const T n0 = log_sum2(t.t00 + es.x + w0, t.t01 + es.y + w1);
+    const T n1 = log_sum2(t.t10 + es.x + w0, t.t11 + es.y + w1);
     w0 = n0;
     w1 = n1;
 }
 
-// The Fisher-identity terms of one site (grad mode): fp the forward vector
-// before the site, (w0, w1) the backward vector after it; adds to gF and
-// ga, returns b = es + w - L for the initial-distribution term.
-__device__ __forceinline__ double2 log_grad_site(double2 fp, double2 es,
-                                                 double w0, double w1,
-                                                 double L, double x,
-                                                 double d, double Fc,
-                                                 double& gF, double& ga) {
-    const double b0 = es.x + w0 - L, b1 = es.y + w1 - L;
-    const double u00 = exp(fp.x + b0), u01 = exp(fp.x + b1);
-    const double u10 = exp(fp.y + b0), u11 = exp(fp.y + b1);
-    const double one_m = 1.0 - x;
-    const double dx = isinf(d) ? 0.0 : d * x;
+// The Fisher-identity terms of one site (grad mode): (fp0, fp1) the
+// forward vector before the site, (w0, w1) the backward vector after it;
+// adds to gF and ga, sets (b0, b1) = es + w - L for the
+// initial-distribution term.
+template <typename T, typename V>
+__device__ __forceinline__ void log_grad_site(T fp0, T fp1, V es, T w0,
+                                              T w1, T L, T x, T d, T Fc,
+                                              T& gF, T& ga, T& b0, T& b1) {
+    b0 = es.x + w0 - L;
+    b1 = es.y + w1 - L;
+    const T u00 = lc_exp(fp0 + b0), u01 = lc_exp(fp0 + b1);
+    const T u10 = lc_exp(fp1 + b0), u11 = lc_exp(fp1 + b1);
+    const T one_m = (T)1 - x;
+    const T dx = isinf(d) ? (T)0 : d * x;
     gF += one_m * (-u00 + u01 - u10 + u11);
-    ga += dx * (Fc * (u01 - u00) + (1.0 - Fc) * (u10 - u11));
-    return make_double2(b0, b1);
+    ga += dx * (Fc * (u01 - u00) + ((T)1 - Fc) * (u10 - u11));
 }
 
 // GRAD false: p = exp(fw1 + bw1 - L) (the forward pass parks fw1 in p);
@@ -272,39 +318,64 @@ __device__ __forceinline__ double2 log_grad_site(double2 fp, double2 es,
 // are the plain version's either way. The block's first site is peeled
 // out of the backward loop (its forward vector is the entry vector; no
 // step after it is needed), and so is site 0's initial-distribution term.
-template <bool GRAD, bool PARK>
+// The entry and exit vectors and ll_f come from log_combine in float64:
+// float64 lanes take them as they are; float32 lanes take them relative
+// to ll_f (the header) and L = 0, and site 0's initial-distribution term
+// adds block 0's s - ll_f back to es + bw - L.
+template <typename T, bool GRAD, bool PARK>
 __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
-    k_log_sweep(const double* __restrict__ e,  // [S, C, 2]
-                const double* __restrict__ dist,
-                const double* __restrict__ F,
-                const double* __restrict__ alpha,
+    k_log_sweep(const T* __restrict__ e,  // [S, C, 2]
+                const T* __restrict__ dist,
+                const T* __restrict__ F,
+                const T* __restrict__ alpha,
                 const double* __restrict__ fw_in,   // [nb, C, 2]
                 const double* __restrict__ bw_out,  // [nb, C, 2]
                 const double* __restrict__ ll_f,    // [C]
-                double* __restrict__ p,             // [S, C] (no grad)
-                double* __restrict__ ws,            // [S, NP, C]
-                double* __restrict__ gpart,         // [nb, C, 2] (grad)
+                T* __restrict__ p,                  // [S, C] (no grad)
+                T* __restrict__ ws,                 // [S, NP, C]
+                T* __restrict__ gpart,              // [nb, C, 2] (grad)
                 int S, int C, int bs, int nb) {
+    using V = typename Pair<T>::V;
     // planes: [t00, t01, t10, t11,] [fw0, fw1]
     constexpr int NT = PARK ? 4 : 0, NP = NT + (GRAD ? 2 : 0);
     const long long lane = blockIdx.x * (long long)blockDim.x + threadIdx.x;
     if (lane >= (long long)nb * C) return;
     const int c = (int)(lane % C), b = (int)(lane / C);
-    const double Fc = F[c], ac = alpha[c], L = ll_f[c];
-    const double2* e2 = reinterpret_cast<const double2*>(e);
+    const T Fc = F[c], ac = alpha[c];
+    const V* e2 = reinterpret_cast<const V*>(e);
     const int s0 = b * bs, s1 = min(S, s0 + bs);
-    auto plane = [&](int s, int k) -> double& {
+    auto plane = [&](int s, int k) -> T& {
         return ws[((long long)s * NP + k) * C + c];
     };
 
+    // the block's entry and exit vectors
+    T f0, f1, w0, w1, L;
+    T c0 = 0;  // float32: s - ll_f, for site 0's initial-distribution term
+    if constexpr (sizeof(T) == sizeof(double)) {
+        f0 = fw_in[2 * lane];
+        f1 = fw_in[2 * lane + 1];
+        w0 = bw_out[2 * lane];
+        w1 = bw_out[2 * lane + 1];
+        L = ll_f[c];
+    } else {
+        const double x0 = bw_out[2 * lane], x1 = bw_out[2 * lane + 1];
+        const double m = x0 >= x1 ? x0 : x1;
+        const double s = isinf(m) ? 0.0 : m, Ld = ll_f[c];
+        f0 = (T)((fw_in[2 * lane] + s) - Ld);
+        f1 = (T)((fw_in[2 * lane + 1] + s) - Ld);
+        w0 = (T)(x0 - s);
+        w1 = (T)(x1 - s);
+        L = 0;
+        c0 = (T)(s - Ld);
+    }
+
     // forward from the block's entry vector
-    const double f0 = fw_in[2 * lane], f1 = fw_in[2 * lane + 1];
-    double v0 = f0, v1 = f1;
+    T v0 = f0, v1 = f1;
     for (int s = s0; s < s1; ++s) {
-        const LogTrans t = log_trans(Fc, log_decay(ac, dist[s]));
-        const double2 es = e2[(long long)s * C + c];
-        const double n0 = log_sum2(v0 + t.t00, v1 + t.t10) + es.x;
-        const double n1 = log_sum2(v0 + t.t01, v1 + t.t11) + es.y;
+        const LogTrans<T> t = log_trans(Fc, log_decay(ac, dist[s]));
+        const V es = e2[(long long)s * C + c];
+        const T n0 = log_sum2(v0 + t.t00, v1 + t.t10) + es.x;
+        const T n1 = log_sum2(v0 + t.t01, v1 + t.t11) + es.y;
         v0 = n0;
         v1 = n1;
         if (PARK) {
@@ -320,47 +391,49 @@ __global__ void __launch_bounds__(LC_THREADS, LC_CTAS)
             p[(long long)s * C + c] = v1;
         }
     }
-    auto trans = [&](int s) -> LogTrans {
+    auto trans = [&](int s) -> LogTrans<T> {
         if (PARK)
-            return LogTrans{plane(s, 0), plane(s, 1), plane(s, 2),
-                            plane(s, 3)};
+            return LogTrans<T>{plane(s, 0), plane(s, 1), plane(s, 2),
+                               plane(s, 3)};
         return log_trans(Fc, log_decay(ac, dist[s]));
     };
 
     // backward from the block's exit vector
-    double w0 = bw_out[2 * lane], w1 = bw_out[2 * lane + 1];
     if (!GRAD) {
         for (int s = s1 - 1; s > s0; --s) {
             const long long i = (long long)s * C + c;
-            p[i] = exp(p[i] + w1 - L);
+            p[i] = lc_exp(p[i] + w1 - L);
             log_back(trans(s), e2[i], w0, w1);
         }
         const long long i = (long long)s0 * C + c;
-        p[i] = exp(p[i] + w1 - L);
+        p[i] = lc_exp(p[i] + w1 - L);
         return;
     }
-    double gF = 0.0, ga = 0.0;
+    T gF = 0, ga = 0, b0, b1;
     for (int s = s1 - 1; s > s0; --s) {
-        const double d = dist[s];
-        const double x = log_decay(ac, d);
+        const T d = dist[s];
+        const T x = log_decay(ac, d);
         const long long i = (long long)s * C + c;
-        const double2 es = e2[i];
-        log_grad_site(make_double2(plane(s - 1, NT), plane(s - 1, NT + 1)),
-                      es, w0, w1, L, x, d, Fc, gF, ga);
+        const V es = e2[i];
+        log_grad_site(plane(s - 1, NT), plane(s - 1, NT + 1), es, w0, w1, L,
+                      x, d, Fc, gF, ga, b0, b1);
         log_back(PARK ? trans(s) : log_trans(Fc, x), es, w0, w1);
     }
-    const double d = dist[s0];
-    const double x = log_decay(ac, d);
-    const double2 bb = log_grad_site(make_double2(f0, f1),
-                                     e2[(long long)s0 * C + c], w0, w1, L,
-                                     x, d, Fc, gF, ga);
+    const T d = dist[s0];
+    const T x = log_decay(ac, d);
+    log_grad_site(f0, f1, e2[(long long)s0 * C + c], w0, w1, L, x, d, Fc,
+                  gF, ga, b0, b1);
     if (s0 == 0) {  // the initial distribution's term
-        const double eb0 = exp(bb.x), eb1 = exp(bb.y);
-        const double one_m = 1.0 - x;
-        const double T00 = one_m * (1.0 - Fc) + x, T01 = one_m * Fc;
-        const double T10 = one_m * (1.0 - Fc), T11 = one_m * Fc + x;
-        const double q0 = T00 * eb0 + T01 * eb1;
-        const double q1 = T10 * eb0 + T11 * eb1;
+        if constexpr (sizeof(T) != sizeof(double)) {
+            b0 += c0;
+            b1 += c0;
+        }
+        const T eb0 = lc_exp(b0), eb1 = lc_exp(b1);
+        const T one_m = (T)1 - x;
+        const T T00 = one_m * ((T)1 - Fc) + x, T01 = one_m * Fc;
+        const T T10 = one_m * ((T)1 - Fc), T11 = one_m * Fc + x;
+        const T q0 = T00 * eb0 + T01 * eb1;
+        const T q1 = T10 * eb0 + T11 * eb1;
         gF += q1 - q0;
     }
     gpart[2 * lane] = gF;
@@ -371,46 +444,93 @@ static int lanes_grid(long long lanes) {
     return (int)((lanes + LC_THREADS - 1) / LC_THREADS);
 }
 
+template <typename T>
+static int block_transfer(const T* e, const T* dist, const T* F,
+                          const T* alpha, T* A, int S, int C, int bs, int nb,
+                          void* stream) {
+    k_log_block_transfer<T><<<lanes_grid((long long)nb * C), LC_THREADS, 0,
+                              (cudaStream_t)stream>>>(e, dist, F, alpha, A,
+                                                      S, C, bs, nb);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ngsf_log_block_transfer(const double* e, const double* dist,
                                        const double* F, const double* alpha,
                                        double* A, int S, int C, int bs,
                                        int nb, void* stream) {
-    k_log_block_transfer<<<lanes_grid((long long)nb * C), LC_THREADS, 0,
-                           (cudaStream_t)stream>>>(e, dist, F, alpha, A, S,
-                                                   C, bs, nb);
-    return (int)cudaGetLastError();
+    return block_transfer(e, dist, F, alpha, A, S, C, bs, nb, stream);
+}
+
+extern "C" int ngsf_log_block_transfer_f32(const float* e, const float* dist,
+                                           const float* F, const float* alpha,
+                                           float* A, int S, int C, int bs,
+                                           int nb, void* stream) {
+    return block_transfer(e, dist, F, alpha, A, S, C, bs, nb, stream);
 }
 
 // L: blocks a chunk; tn: columns a CTA (models/hmm.py:
 // log_combine_launch); tn * chunks past LCB_MAXC is refused
+template <typename T>
+static int combine(const T* A, const double* F, double* fw_in,
+                   double* bw_out, double* ll_f, double* ll_b, int C, int nb,
+                   int L, int tn, void* stream) {
+    if (L < 1 || nb < 1 || C < 1 || tn < 1) return (int)cudaErrorInvalidValue;
+    const int nc = (nb + L - 1) / L;
+    if ((long long)tn * nc > LCB_MAXC) return (int)cudaErrorInvalidValue;
+    k_log_combine<T><<<(C + tn - 1) / tn, dim3(tn, nc, 2), 0,
+                       (cudaStream_t)stream>>>(A, F, fw_in, bw_out, ll_f,
+                                               ll_b, C, nb, L);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ngsf_log_combine(const double* A, const double* F,
                                 double* fw_in, double* bw_out, double* ll_f,
                                 double* ll_b, int C, int nb, int L, int tn,
                                 void* stream) {
-    if (L < 1 || nb < 1 || C < 1 || tn < 1) return (int)cudaErrorInvalidValue;
-    const int nc = (nb + L - 1) / L;
-    if ((long long)tn * nc > LCB_MAXC) return (int)cudaErrorInvalidValue;
-    k_log_combine<<<(C + tn - 1) / tn, dim3(tn, nc, 2), 0,
-                    (cudaStream_t)stream>>>(A, F, fw_in, bw_out, ll_f, ll_b,
-                                            C, nb, L);
-    return (int)cudaGetLastError();
+    return combine(A, F, fw_in, bw_out, ll_f, ll_b, C, nb, L, tn, stream);
+}
+
+extern "C" int ngsf_log_combine_f32(const float* A, const double* F,
+                                    double* fw_in, double* bw_out,
+                                    double* ll_f, double* ll_b, int C, int nb,
+                                    int L, int tn, void* stream) {
+    return combine(A, F, fw_in, bw_out, ll_f, ll_b, C, nb, L, tn, stream);
 }
 
 // ws: the scratch planes, [S, 6, C] with grad and park, [S, 4, C] park
 // alone, [S, 2, C] grad alone, none (null) else
+template <typename T>
+static int sweep(const T* e, const T* dist, const T* F, const T* alpha,
+                 const double* fw_in, const double* bw_out,
+                 const double* ll_f, T* p, T* ws, T* gpart, int S, int C,
+                 int bs, int nb, int grad, int park, void* stream) {
+    const int grid = lanes_grid((long long)nb * C);
+    const cudaStream_t st = (cudaStream_t)stream;
+    auto kernel = grad ? (park ? k_log_sweep<T, true, true>
+                               : k_log_sweep<T, true, false>)
+                       : (park ? k_log_sweep<T, false, true>
+                               : k_log_sweep<T, false, false>);
+    kernel<<<grid, LC_THREADS, 0, st>>>(e, dist, F, alpha, fw_in, bw_out,
+                                        ll_f, p, ws, gpart, S, C, bs, nb);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int ngsf_log_sweep(const double* e, const double* dist,
                               const double* F, const double* alpha,
                               const double* fw_in, const double* bw_out,
                               const double* ll_f, double* p, double* ws,
                               double* gpart, int S, int C, int bs, int nb,
                               int grad, int park, void* stream) {
-    const int grid = lanes_grid((long long)nb * C);
-    const cudaStream_t st = (cudaStream_t)stream;
-    auto kernel = grad ? (park ? k_log_sweep<true, true>
-                               : k_log_sweep<true, false>)
-                       : (park ? k_log_sweep<false, true>
-                               : k_log_sweep<false, false>);
-    kernel<<<grid, LC_THREADS, 0, st>>>(e, dist, F, alpha, fw_in, bw_out,
-                                        ll_f, p, ws, gpart, S, C, bs, nb);
-    return (int)cudaGetLastError();
+    return sweep(e, dist, F, alpha, fw_in, bw_out, ll_f, p, ws, gpart, S, C,
+                 bs, nb, grad, park, stream);
+}
+
+extern "C" int ngsf_log_sweep_f32(const float* e, const float* dist,
+                                  const float* F, const float* alpha,
+                                  const double* fw_in, const double* bw_out,
+                                  const double* ll_f, float* p, float* ws,
+                                  float* gpart, int S, int C, int bs, int nb,
+                                  int grad, int park, void* stream) {
+    return sweep(e, dist, F, alpha, fw_in, bw_out, ll_f, p, ws, gpart, S, C,
+                 bs, nb, grad, park, stream);
 }

@@ -8,19 +8,23 @@ L-BFGS on analytic gradients, and the convergence bookkeeping
 (EM.cpp:56,75-97) is replicated exactly on the host (models/driver.py).
 
 This module carries the single-device kernel routes:
-  - the scan tier (numerics "log", the default, float64; the JAX package's
-    --dtype float64 --kernel scan): the blocked log-space chain of
-    models/hmm.py (csrc/log_chain.cu) for the E-step and every L-BFGS
-    evaluation, the exact log-space est_maf (ops/maf.est_maf,
-    csrc/maf_log.cu) for the freq M-step, calc_emission for the
-    emissions; one run with freq_est 0/1/2 and e_prob_calc 0/1/2, or R
-    replicates flattened into the columns (freq_est 0/1, e_prob_calc 1);
-  - the fused route (numerics "pallas", float32) (models/hmm_kernels.py, emissions built in-kernel from
-    (gl, freq)): one run, e_prob_calc 1, freq_est 1 (the default; the
-    freq M-step on the est_maf kernels of ops/maf_kernels.py) or 0
-    (allele frequencies held fixed); its gl slabs are float32, or
-    bfloat16 under gl_bf16 (half their bytes; the kernels upcast at
-    load);
+  - the scan tier (numerics "log", the default; the JAX package's
+    --kernel scan, in the state's float64 or float32): the blocked
+    log-space chain of models/hmm.py (csrc/log_chain.cu, a kernel of each
+    float type) for the E-step and every L-BFGS evaluation, the exact
+    log-space est_maf (ops/maf.est_maf, csrc/maf_log.cu) for the freq
+    M-step, calc_emission for the emissions; one run or R replicates
+    flattened into the columns, each with freq_est 0/1/2 and e_prob_calc
+    0/1/2;
+  - the fused route (numerics "pallas") (models/hmm_kernels.py, emissions
+    built in-kernel from (gl, freq)): one run, e_prob_calc 1, freq_est 1
+    (the default; the freq M-step on the est_maf kernels of
+    ops/maf_kernels.py) or 0 (allele frequencies held fixed); its gl
+    slabs are float32, or bfloat16 under gl_bf16 (half their bytes; the
+    kernels upcast at load). A float64 state runs as the JAX package
+    runs it: the kernels read float32 (gl slabs, freq, F, alpha), their
+    outputs are cast to the state's type, and the emissions and L-BFGS
+    stay in it;
   - the emission-slab route (models/hmm_kernels_v1.py), which reads
     state.e_prob: R > 1 replicates flattened into the column axis
     (models/restart.py; freq_est 0/1, e_prob_calc 1), and one run on the
@@ -124,19 +128,18 @@ class EMResult:
     opt_memory: object = None
 
 
-# numerics -> the float type its tier runs in (as the JAX CLI pairs
-# --dtype with --kernel; the fused tier's gl slabs may be bfloat16, its
-# state stays float32) and the ROADMAP item that would lift any other.
-# The one place that says so: _refuse holds the entry points and the CLI
-# to it.
-TIER_DTYPES = {"log": (torch.float64, "float32 scan tier"),
-               "pallas": (torch.float32, "float64 on the fused tier")}
+# numerics -> the float types a state of that tier may have: on the scan
+# tier each has its own kernels; the fused tier's kernels run float32 (its
+# gl slabs may be bfloat16) whatever the state's type. The one place that
+# says so: _refuse holds the entry points and the CLI to it.
+TIER_DTYPES = {"log": (torch.float64, torch.float32),
+               "pallas": (torch.float32, torch.float64)}
 
 
 def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="log",
             block_size=None, dtype=None):
     """Raise for every option value this package does not carry yet.
-    dtype: the state's, where known; it must be its tier's
+    dtype: the state's, where known; it must be one of its tier's
     (TIER_DTYPES)."""
     if n_rep < 1:
         raise ValueError(f"n_rep must be >= 1, got {n_rep}")
@@ -149,23 +152,19 @@ def _refuse(freq_est=1, e_prob_calc=1, n_rep=1, numerics="log",
             f"numerics {numerics!r} (ROADMAP queue 1: "
             "'models/hmm_blocked.py'); the scan tier 'log' and the fused "
             "kernel tier 'pallas' are ported")
-    if n_rep > 1 and (freq_est not in (0, 1) or e_prob_calc != 1):
-        if numerics == "log":
-            # the JAX package vmaps em_iteration over the replicates
-            raise NotImplementedError(
-                f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
-                f"{e_prob_calc} on the scan tier (ROADMAP queue 1: "
-                "'log-tier --n_rep with the LD modes')")
+    if (n_rep > 1 and numerics == "pallas"
+            and (freq_est not in (0, 1) or e_prob_calc != 1)):
         # the JAX package runs these replicates vmapped on its linear
-        # tier (models/restart.py:91-97), which is not ported
+        # tier (models/restart.py:91-97), which is not ported; the scan
+        # tier runs them flattened
         raise NotImplementedError(
             f"n_rep {n_rep} with freq_est {freq_est} / e_prob_calc "
-            f"{e_prob_calc} (ROADMAP queue 1: 'models/hmm_blocked.py')")
-    want, item = TIER_DTYPES[numerics]
-    if dtype is not None and dtype != want:
-        raise NotImplementedError(
-            f"numerics {numerics!r} in {dtype} is not ported yet (ROADMAP "
-            f"queue 1: '{item}'); that tier runs {want}")
+            f"{e_prob_calc} on the fused tier (ROADMAP queue 1: "
+            "'models/hmm_blocked.py'); the scan tier runs them")
+    if dtype is not None and dtype not in TIER_DTYPES[numerics]:
+        raise TypeError(
+            f"numerics {numerics!r} runs a float64 or float32 state, got "
+            f"{dtype}")
     if block_size:
         raise NotImplementedError(
             "block_size (ROADMAP queue 1: 'models/hmm_blocked.py')")
@@ -187,9 +186,8 @@ def init_state(gl, freq0, indF0, alpha0, e_prob_calc=1, device="cuda",
     """Initial EM state with emissions from the initial freqs
     (parse_args.cpp:370-387). gl/freq0/indF0/alpha0: tensors or numpy
     arrays; everything is moved to `device` in `dtype` (None: gl's own,
-    as in the JAX package). A tier runs only a state of its TIER_DTYPES
-    type (float64 for the scan tier, float32 for the fused one): the
-    entry points refuse any other.
+    as in the JAX package). Both tiers run float64 and float32 states
+    (TIER_DTYPES): the entry points refuse any other type.
 
     e_prob_calc == 2: sites >= 1 get LD-conditioned pair emissions
     (parse_args.cpp:373-386) from the corrected pair EM seeded with the
@@ -259,10 +257,10 @@ def em_iteration(
 ):
     """One EM iteration (reference: iter_EM, EM.cpp:139-289).
 
-    numerics "log" (the default): the float64 scan tier, _em_iteration_log
-    (JAX em.py with numerics "log", block_size None); prep_slabs is
-    ignored and the slabs returned under return_prep are None;
-    defer_* and gl_bf16 do not apply.
+    numerics "log" (the default): the scan tier in the state's float type,
+    _em_iteration_log (JAX em.py with numerics "log", block_size None);
+    prep_slabs is ignored and the slabs returned under return_prep are
+    None; defer_* and gl_bf16 do not apply.
 
     numerics "pallas": the fused route, where the chain kernels compute
     the emissions in-kernel from (gl, freq). With freq_est 0 the emissions stay those of the initial
@@ -307,10 +305,11 @@ def em_iteration(
     (JAX em.py n_rep contract): gl stays [S, N, 3] (shared),
     state.indF/alpha/ind_lkl are [R*N], state.e_prob/p_ibd are [S, R*N, ..]
     with column r*N+i = (replicate r, individual i), state.freq is [R, S],
-    and stats.fwbw_maxdiff is [R]. That route reads emission slabs
-    (models/hmm_kernels_v1.py); prep_slabs is then the (g0, g2) gl slab
+    and stats.fwbw_maxdiff is [R]. On the fused tier that route reads
+    emission slabs (models/hmm_kernels_v1.py) and requires freq_est in
+    (0, 1) and e_prob_calc == 1; prep_slabs is then the (g0, g2) gl slab
     pair of the freq M-step (None under freq_est 0) and defer_* do not
-    apply. Requires freq_est in (0, 1) and e_prob_calc == 1.
+    apply. The scan tier runs every freq_est and e_prob_calc so.
 
     One run with e_prob_calc != 1 or freq_est 2 (the LD path) takes the
     emission-slab route too, with L = N columns (_em_iteration_v1);
@@ -533,25 +532,26 @@ def _check_flat(state, S, N, n_rep):
 
 def _em_iteration_log(gl, dist, state, n_rep, freq_est, e_prob_calc,
                       indF_fixed, alpha_fixed, opt_memory):
-    """em_iteration on the float64 scan tier (JAX em.py with numerics
-    "log", block_size None); returns (state, stats, opt_memory).
+    """em_iteration on the scan tier (JAX em.py with numerics "log",
+    block_size None), in the state's float type (float64 or float32);
+    returns (state, stats, opt_memory).
 
     E-step: hmm.posteriors (log_block_transfer, log_combine, log_sweep) on
-    state.e_prob, then the check_interv snap and fwbw_maxdiff. (F, alpha)
-    M-step: L-BFGS over the columns, every evaluation
-    hmm.loglik_value_and_grad (the same three kernels, the sweep summing
-    the gradient), cold first evaluation as in the JAX package. freq
-    M-step (JAX :572-616): est_maf in log space (maf_log) on the snapped
-    posterior; emissions from calc_emission (e_prob_calc 1) or only site
-    0's (e_prob_calc 0 / 2, EM.cpp:252's gate); freq_est 2 the two-site
-    haplotype EM (_freq_step_haplo); freq_est 0 freezes freq and e_prob.
+    state.e_prob, then the check_interv snap and fwbw_maxdiff (from the
+    combine's float64 log-likelihoods; ind_lkl is cast to the state's
+    type, as JAX carries it). (F, alpha) M-step: L-BFGS over the columns,
+    every evaluation hmm.loglik_value_and_grad (the same three kernels,
+    the sweep summing the gradient), cold first evaluation as in the JAX
+    package. freq M-step (_freq_step_log): freq_est 0 freezes freq and
+    e_prob.
 
     n_rep = R > 1: R replicates flattened into the columns (models/
     restart.py). The chain and the L-BFGS rows are per column, so each
-    replicate gets what it gets alone; replicate r's freq M-step runs
-    maf_log on its own columns of the posterior (read in place) and its
-    emissions are written back into its columns. The JAX package vmaps
-    em_iteration over the replicates instead (restart.py:180-195)."""
+    replicate gets what it gets alone; replicate r's freq M-step
+    (_freq_step_log, every freq_est and e_prob_calc) reads its own freq,
+    emissions and columns of the posterior (in place) and writes its freq
+    and its columns of the emissions. The JAX package vmaps em_iteration
+    over the replicates instead (restart.py:180-195)."""
     S, N = gl.shape[0], gl.shape[1]
     R = n_rep
     _check_flat(state, S, N, n_rep)
@@ -563,6 +563,7 @@ def _em_iteration_log(gl, dist, state, n_rep, freq_est, e_prob_calc,
     del p_raw
     fwbw = torch.abs(ll_f - ll_b)
     fwbw_maxdiff = fwbw.reshape(R, N).amax(1) if R > 1 else torch.max(fwbw)
+    ind_lkl = ll_f.to(state.indF.dtype)
 
     # ---- M-step 1: per-individual (F, alpha) (EM.cpp:189-206)
     indF, alpha, opt_iters, opt_mem = _mstep_indF_alpha(
@@ -578,19 +579,32 @@ def _em_iteration_log(gl, dist, state, n_rep, freq_est, e_prob_calc,
         e_prob = torch.empty_like(state.e_prob)
         for r in range(R):
             cols = slice(r * N, (r + 1) * N)
-            freq[r] = est_maf(gl, p_ibd[:, cols])
-            e_prob[:, cols] = calc_emission(gl, freq[r][:, None])
-    elif freq_est == 1:
-        freq = est_maf(gl, p_ibd)
-        if e_prob_calc == 1:
-            e_prob = calc_emission(gl, freq[:, None])
-        else:
-            e_prob = state.e_prob.clone()
-            e_prob[0] = calc_emission(gl[0], freq[0])
+            freq[r], e_prob[:, cols] = _freq_step_log(
+                gl, state.freq[r], state.e_prob[:, cols], p_ibd[:, cols],
+                freq_est, e_prob_calc)
     else:
-        freq, e_prob = _freq_step_haplo(gl, state, p_ibd, e_prob_calc)
-    new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ll_f)
+        freq, e_prob = _freq_step_log(gl, state.freq, state.e_prob, p_ibd,
+                                      freq_est, e_prob_calc)
+    new_state = EMState(freq, indF, alpha, e_prob, p_ibd, ind_lkl)
     return new_state, IterStats(fwbw_maxdiff, opt_iters), opt_mem
+
+
+def _freq_step_log(gl, freq, e_prob, p_ibd, freq_est, e_prob_calc):
+    """The scan tier's freq M-step (JAX em.py:572-616) of one run (or one
+    replicate: its freq [S], emissions and posterior columns [S, N, ..],
+    views in place); returns the new (freq, e_prob). freq_est 1: est_maf
+    in log space (maf_log) on the snapped posterior, emissions from
+    calc_emission (e_prob_calc 1) or only site 0's (e_prob_calc 0 / 2,
+    EM.cpp:252's gate); freq_est 2: the two-site haplotype EM
+    (_freq_step_haplo)."""
+    if freq_est == 2:
+        return _freq_step_haplo(gl, freq, e_prob, p_ibd, e_prob_calc)
+    freq = est_maf(gl, p_ibd)
+    if e_prob_calc == 1:
+        return freq, calc_emission(gl, freq[:, None])
+    e_prob = e_prob.clone()
+    e_prob[0] = calc_emission(gl[0], freq[0])
+    return freq, e_prob
 
 
 def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
@@ -617,21 +631,24 @@ def _freq_step_ld(gl, state, p_ibd, freq_est, e_prob_calc, gl_rows):
         e_prob = state.e_prob.clone()
         e_prob[0] = calc_emission(gl[0], freq[0])
         return freq, e_prob, gl_rows
-    return _freq_step_haplo(gl, state, p_ibd, e_prob_calc) + (gl_rows,)
+    return _freq_step_haplo(gl, state.freq, state.e_prob, p_ibd,
+                            e_prob_calc) + (gl_rows,)
 
 
-def _freq_step_haplo(gl, state, p_ibd, e_prob_calc):
-    """freq_est 2's freq M-step (JAX em.py:589-620), shared by the
-    emission-slab route and the scan tier; returns (freq, e_prob)."""
-    prior = calc_hwe(state.freq[:, None], p_ibd)  # [S, N, 3] log
+def _freq_step_haplo(gl, freq_prev, e_prob_prev, p_ibd, e_prob_calc):
+    """freq_est 2's freq M-step (JAX em.py:589-620) from the previous
+    iteration's freq [S] and the posterior [S, N] (e_prob_prev gives the
+    emissions' shape and type), shared by the emission-slab route and the
+    scan tier; returns (freq, e_prob)."""
+    prior = calc_hwe(freq_prev[:, None], p_ibd)  # [S, N, 3] log
     pp = post_prob(gl, prior)
     del prior
-    hap = haplo_freq(pp[:-1], pp[1:], state.freq[:-1], state.freq[1:],
+    hap = haplo_freq(pp[:-1], pp[1:], freq_prev[:-1], freq_prev[1:],
                      compat=False)  # [S-1, 4]
     del pp
     freq0 = est_maf(gl[0:1], p_ibd[0:1])
     freq = torch.cat([freq0, hap[:, 1] + hap[:, 3]])
-    e_prob = torch.empty_like(state.e_prob)
+    e_prob = torch.empty_like(e_prob_prev)
     e_prob[0:1] = calc_emission(gl[0:1], freq[0:1, None])
     if e_prob_calc == 2:
         e_prob[1:] = ld_emissions(hap, gl, freq)

@@ -7,12 +7,14 @@ replicates are FLATTENED into the column axis of one EM iteration (JAX
 models/restart.py, its pallas path): column r * N + i is (replicate r,
 individual i), the chain kernels and the batched L-BFGS run once over
 all R * N columns, and only the freq M-step segments by replicate. That
-holds on both tiers: the float64 scan tier (numerics "log", where the JAX
-package vmaps its em_iteration over the replicates instead) and the fused
-float32 one (numerics "pallas", the emission-slab kernels). Each
-replicate keeps its own convergence bookkeeping: one that has converged
-is frozen while the stragglers finish, as independent runs would stop at
-their own pace.
+holds on both tiers, in a float64 or float32 state: the scan tier
+(numerics "log", where the JAX package vmaps its em_iteration over the
+replicates instead), with every --freq_est and --e_prob (each replicate's
+haplotype EM or site-0 emission update on its own columns), and the
+fused one (numerics "pallas", the emission-slab kernels), with --freq_est
+0 or 1 and --e_prob 1. Each replicate keeps its own convergence
+bookkeeping: one that has converged is frozen while the stragglers
+finish, as independent runs would stop at their own pace.
 
 Seeding: replicate r draws its random inits from GslTaus(seed + r)
 (the shell wrapper's ``--seed $RANDOM`` is irreproducible by design);
@@ -39,9 +41,11 @@ def stack_restart_states(gl, n_rep, seed, indF_spec="r", freq_spec="r",
 
     indF_spec/freq_spec follow the CLI's init strings
     (parse_args.cpp:248-363); replicate r resolves its random draws with
-    GslTaus(seed + r). Returns an EMState whose fields have a leading [R]
+    GslTaus(seed + r); freq_est / e_prob_calc select the LD inits as for
+    one run, so with e_prob_calc 2 each replicate's LD pair emissions come
+    from its own freq0. Returns an EMState whose fields have a leading [R]
     axis, on `device` in `dtype` (None: gl's own; em.TIER_DTYPES says
-    which type each tier runs)."""
+    which types each tier runs)."""
     dev = _device(device)
     gl = torch.as_tensor(gl)
     dtype = gl.dtype if dtype is None else dtype

@@ -31,8 +31,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # template: the gl-layout kernel on float32 and on bfloat16 ("_bf16") gl
 # slabs, and the emission-slab ("_v1") kernel. maf_state_grad, maf_sums_grad
 # and maf_macro export a float32 and a bfloat16 gl instantiation. log_chain
-# (three float64 kernels) and maf_log (float64 and float32) serve the scan
-# tier.
+# (three kernels, each in float64 and in float32, "_f32") and maf_log
+# (float64 and float32) serve the scan tier.
 SOURCES = (
     "block_transfer.cu",
     "block_transfer_grad.cu",
@@ -99,6 +99,9 @@ _SIGNATURES = {
     "ngsf_log_block_transfer": [_P] * 5 + [_I] * 4 + [_P],
     "ngsf_log_combine": [_P] * 6 + [_I] * 4 + [_P],
     "ngsf_log_sweep": [_P] * 10 + [_I] * 6 + [_P],
+    "ngsf_log_block_transfer_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "ngsf_log_combine_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "ngsf_log_sweep_f32": [_P] * 10 + [_I] * 6 + [_P],
     "ngsf_maf_log_f64": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
     "ngsf_maf_log_f32": [_P] * 3 + [_L, _I, _L] + [_I] * 4 + [_P],
 }

@@ -110,11 +110,12 @@ def test_run_em_invariants_and_memory(runs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(numerics="log"), dict(numerics="linear"), dict(block_size="auto"),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+    dict(numerics="log", block_size=64), dict(numerics="linear"),
+    dict(block_size="auto"),
+], ids=["numerics=log", "numerics=linear", "block_size=auto"])
 def test_unsupported_options_raise(runs, kw):
-    # pinned to the fused tier; numerics "log" (the scan tier) runs float64
-    # only, so this float32 state is refused there
+    # pinned to the fused tier; numerics "log" (the scan tier) runs this
+    # float32 state (tests/test_torch_log32.py), but not in blocks
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_em.run_em(runs["gl"], runs["dist"], runs["st_t"],
                     t_em.EMOptions(**{**LOOP, "numerics": "pallas", **kw}),

@@ -305,6 +305,11 @@ def test_cli_default_tier_outputs_match_jax(cli):
 
 
 def test_scan_tier_is_the_default_and_refuses_what_it_lacks(case):
+    """The scan tier is the default (float64, as the JAX CLI's --dtype);
+    a float32 state runs on it too, on the float32 kernels'
+    plain versions; replicates in the LD modes pass its refusals; what it
+    still lacks (the blocked and linear tiers, block_size, any other float
+    type) is refused, naming the ROADMAP item."""
     from ngsf_hmm_tpu_torch.cli import parse_args
 
     assert t_em.EMOptions().numerics == j_em.EMOptions().numerics == "log"
@@ -316,44 +321,67 @@ def test_scan_tier_is_the_default_and_refuses_what_it_lacks(case):
     assert st.e_prob.dtype == torch.float64
     st32 = t_em.init_state(case["gl"], a["freq"], a["indF"], a["alpha"],
                            device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="float32 scan tier"):
-        t_em.em_iteration(case["gl_t"].float(), case["dist_t"].float(), st32)
-    for kw in (dict(freq_est=2), dict(e_prob_calc=2)):
+    out, _ = t_em.em_iteration(case["gl_t"].float(), case["dist_t"].float(),
+                               st32)
+    assert all(getattr(out, k).dtype == torch.float32
+               for k in convert.STATE_FIELDS)
+    assert t_em.TIER_DTYPES["log"] == (torch.float64, torch.float32)
+    for kw in (dict(freq_est=2), dict(e_prob_calc=2), dict(e_prob_calc=0)):
+        t_em._refuse(n_rep=2, **kw)
+    for kw in (dict(numerics="linear"), dict(block_size=64)):
         with pytest.raises(NotImplementedError,
-                           match="log-tier --n_rep with the LD modes"):
-            t_em._refuse(n_rep=2, **kw)
+                           match="ROADMAP queue 1: 'models/hmm_blocked.py'"):
+            t_em._refuse(**kw)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        t_em._refuse(dtype=torch.bfloat16)
     sts = t_restart.stack_restart_states(case["gl"], 2, 5, device="cpu")
     assert sts.e_prob.dtype == torch.float64 and sts.e_prob.shape[0] == 2
 
 
 def test_fused_tier_refuses_a_float64_state(case):
-    """The tier's float type is models/em.TIER_DTYPES': a float64 state
-    (init_state's default from a float64 gl) is refused on the fused tier
-    by every entry point, not run on its float32 kernels."""
+    """The fused tier's float types are models/em.TIER_DTYPES': a float64
+    state (init_state's default from a float64 gl) is no longer refused
+    there but runs, as in the JAX package, on the float32 kernels, every
+    entry point keeping it float64 (tests/test_torch_fused64.py holds it
+    against JAX); a bfloat16 state is refused."""
     a = case["arrays"]
     st = t_em.init_state(case["gl"], a["freq"], a["indF"], a["alpha"],
                          device="cpu")
-    opts = t_em.EMOptions(numerics="pallas", min_iters=2, max_iters=3)
-    with pytest.raises(NotImplementedError, match="float64 on the fused"):
-        t_em.em_iteration(case["gl_t"], case["dist_t"], st,
-                          numerics="pallas")
-    with pytest.raises(NotImplementedError, match="float64 on the fused"):
-        t_em.run_em(case["gl"], case["dist"], st, opts, device="cpu")
+    assert t_em.TIER_DTYPES["pallas"] == (torch.float32, torch.float64)
+    opts = t_em.EMOptions(numerics="pallas", min_iters=1, max_iters=2,
+                          min_epsilon=100.0, verbose=0)
+    out, _ = t_em.em_iteration(case["gl_t"], case["dist_t"], st,
+                               numerics="pallas")
+    res = t_em.run_em(case["gl"], case["dist"], st, opts, device="cpu")
     sts = t_restart.stack_restart_states(case["gl"], 2, 5, device="cpu")
-    with pytest.raises(NotImplementedError, match="float64 on the fused"):
-        t_restart.run_em_restarts(case["gl"], case["dist"], sts, opts,
-                                  device="cpu")
+    rres = t_restart.run_em_restarts(case["gl"], case["dist"], sts, opts,
+                                     device="cpu")
+    for state in (out, res.state, rres.best.state):
+        assert all(getattr(state, k).dtype == torch.float64
+                   for k in convert.STATE_FIELDS)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        t_em.em_iteration(case["gl_t"].bfloat16(), case["dist_t"],
+                          st._replace(indF=st.indF.bfloat16()),
+                          numerics="pallas")
 
 
 @pytest.mark.parametrize("extra, msg", [
-    (["--dtype", "float32"], "float32 scan tier"),
-    (["--kernel", "pallas"], "float64 on the fused tier"),
+    (["--kernel", "linear"], "'models/hmm_blocked.py'"),
+    (["--kernel", "blocked"], "'models/hmm_blocked.py'"),
     (["--gl_bf16", "1"], "requires --kernel pallas"),
-    (["--n_rep", "2", "--e_prob", "0"], "log-tier --n_rep with the LD"),
-], ids=["float32-scan", "float64-pallas", "gl_bf16-scan", "n_rep-e_prob0"])
+    (["--kernel", "pallas", "--n_rep", "2", "--e_prob", "0"],
+     "'models/hmm_blocked.py'"),
+    (["--opt", "compat"], "'--opt compat'"),
+], ids=["linear", "blocked", "gl_bf16-scan", "pallas-n_rep-e_prob0",
+        "opt-compat"])
 def test_cli_refuses_on_the_scan_tier(extra, msg, capsys):
-    """Each refusal names what will lift it (in-process: the refusal comes
-    before the files are opened)."""
+    """What the CLI still refuses names what will lift it (in-process: the
+    refusal comes before the files are opened): the blocked and linear
+    tiers, bfloat16 slabs off the fused tier, the fused tier's LD
+    replicates and --opt compat. --dtype float32, --kernel pallas in
+    float64 and the scan tier's LD replicates now run
+    (tests/test_torch_log32.py, test_torch_fused64.py,
+    test_torch_log_ld_restart.py)."""
     from ngsf_hmm_tpu_torch.cli import main
 
     base = ["--geno", "none.geno", "--pos", "none.pos", "--n_ind", "4",

@@ -187,8 +187,9 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     # the LD path runs (tests/test_torch_ld.py); with replicates it stays
-    # refused
-    ["--n_rep", "2", "--freq_est", "2"],
+    # refused on the fused tier (the scan tier runs it:
+    # tests/test_torch_log_ld_restart.py)
+    ["--kernel", "pallas", "--n_rep", "2", "--freq_est", "2"],
     ["--freq_est", "0", "--mesh", "ind=2"],
     ["--freq_est", "0", "--kernel", "linear"],
     # replicates run; with a checkpoint they stay refused
@@ -196,7 +197,7 @@ def test_cli_end_to_end_on_cpu(arrays, tmp_path):
     ["--freq_est", "0", "--opt", "compat"],
     ["--freq_est", "0", "--stream_chunk", "10"],
     ["--freq_est", "0", "--kernel", "blocked"],
-    ["--n_rep", "2", "--e_prob", "2"],
+    ["--kernel", "pallas", "--n_rep", "2", "--e_prob", "2"],
 ], ids=lambda e: "".join(e[-2:]).lstrip("-"))
 def test_cli_refuses_unported_flags(extra, capsys):
     """Flags of later slices are parsed and refused before any input is

@@ -265,9 +265,13 @@ def test_restart_cli_on_cpu(tmp_path):
 @pytest.mark.parametrize("kw", [dict(freq_est=2), dict(e_prob_calc=2)],
                          ids=["freq_est2", "e_prob2"])
 def test_refuse_ld_modes_with_replicates(kw):
-    """The JAX package runs these replicates on its linear tier, which the
-    port does not have: refused, naming the ROADMAP items."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_em._refuse(n_rep=3, **kw)
-    t_em._refuse(n_rep=3)  # freq_est 1, e_prob_calc 1: runs
-    t_em._refuse(n_rep=3, freq_est=0)
+    """On the fused tier the JAX package runs these replicates on its
+    linear tier, which the port does not have: refused, naming the
+    ROADMAP item. The scan tier runs them (tests/test_torch_log_ld_restart
+    .py)."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: 'models/hmm_blocked.py'"):
+        t_em._refuse(n_rep=3, numerics="pallas", **kw)
+    t_em._refuse(n_rep=3, numerics="log", **kw)
+    t_em._refuse(n_rep=3, numerics="pallas")  # freq_est 1, e_prob_calc 1
+    t_em._refuse(n_rep=3, numerics="pallas", freq_est=0)
